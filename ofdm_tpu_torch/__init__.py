@@ -1,0 +1,37 @@
+"""ofdm_tpu_torch: the OFDM transceiver of ``ofdm_tpu`` in PyTorch, with CUDA
+kernels written for the NVIDIA H100 (sm_90a).
+
+It imports torch and numpy, never jax: it runs where the JAX package is
+absent, and ``ofdm_tpu`` stays the reference it is tested against.  Module
+layout and names mirror ``ofdm_tpu``.  Functions take tensors and work on
+their device; randomness comes from explicit ``torch.Generator``s.
+
+On CUDA the decode path refuses to run while TF32 is allowed
+(``torch.backends.cuda.matmul.allow_tf32`` or
+``torch.backends.cudnn.allow_tf32``, the latter True by default): set both
+to False first.  The kernels build with ``nvcc`` at first use into
+``build/ofdm_tpu_torch/``.
+"""
+
+from .config import DEFAULT_CONFIG, FrameConfig
+from .phy.channel import channel
+from .phy.modulation import Modulation
+from .phy.rx import (DecodeError, decode, decode_frame, decode_frame_planar,
+                     sync_offset)
+from .phy.tx import encode, encode_payload, frame_len, n_data_blocks
+
+__all__ = [
+    "DEFAULT_CONFIG",
+    "DecodeError",
+    "FrameConfig",
+    "Modulation",
+    "channel",
+    "decode",
+    "decode_frame",
+    "decode_frame_planar",
+    "encode",
+    "encode_payload",
+    "frame_len",
+    "n_data_blocks",
+    "sync_offset",
+]

@@ -1,0 +1,161 @@
+"""DFT matrices and the matrix-form transforms (port of ofdm_tpu/ops/fft.py).
+
+The per-symbol transforms are 64 points long, so each is a dense fp32 (or
+fp64) matrix product.  A complex product (xr + j xi)(Wr + j Wi) is packed as
+one real product
+
+    [xr xi] @ [[Wr, Wi], [-Wi, Wr]] = [xr@Wr - xi@Wi,  xr@Wi + xi@Wr]
+
+and left to ``torch.matmul``.  Forward transforms are unnormalized, inverse
+ones scaled by 1/N (numpy's convention, as the reference's).
+
+On CUDA these products must run in full fp32: ``require_full_fp32`` refuses
+to run while TF32 is allowed for matmuls or cuDNN convolutions.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def require_full_fp32(device: torch.device) -> None:
+    """Raise if fp32 products on ``device`` may fall to TF32.
+
+    TF32 keeps about three decimal digits: enough to flip QAM256 decisions
+    and the channel's convolution.  The package sets no global flag itself;
+    the caller turns TF32 off with
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    ``torch.backends.cudnn.allow_tf32 = False`` (the latter is True by
+    default and governs ``conv1d``).
+    """
+    if device.type != "cuda":
+        return
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError(
+            "ofdm_tpu_torch needs full-fp32 products on CUDA: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.backends.cudnn.allow_tf32 = False")
+
+
+@lru_cache(maxsize=None)
+def device_table(fn, args: tuple, dtype: torch.dtype, device: torch.device):
+    """``fn(*args)`` (a cached numpy table builder, or one returning a tuple
+    of tables) as tensors on ``device``, built once per (table, dtype,
+    device) so the decode path makes no host-to-device copy of its
+    constants."""
+    out = fn(*args)
+    if isinstance(out, tuple):
+        return tuple(torch.tensor(a, dtype=dtype, device=device) for a in out)
+    return torch.tensor(np.asarray(out), dtype=dtype, device=device)
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float64 for complex128/float64 data, float32 otherwise."""
+    return torch.float64 if dtype in (torch.complex128, torch.float64) \
+        else torch.float32
+
+
+@lru_cache(maxsize=None)
+def _dft_matrix(n: int, inverse: bool) -> np.ndarray:
+    k = np.arange(n)
+    sign = 2j if inverse else -2j
+    w = np.exp(sign * np.pi * np.outer(k, k) / n)
+    if inverse:
+        w /= n
+    return w
+
+
+@lru_cache(maxsize=None)
+def _packed_dft_matrix(n: int, inverse: bool) -> np.ndarray:
+    w = _dft_matrix(n, inverse)
+    return np.block([[w.real, w.imag], [-w.imag, w.real]])
+
+
+def dft_matmul(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """DFT over the last axis as one packed real matmul; matches
+    ``torch.fft.fft`` (forward) / ``torch.fft.ifft`` (inverse, 1/N)."""
+    n = x.shape[-1]
+    w = device_table(_packed_dft_matrix, (n, inverse), real_dtype(x.dtype),
+                     x.device)
+    out = torch.cat([x.real, x.imag], dim=-1) @ w
+    return torch.complex(out[..., :n], out[..., n:])
+
+
+@lru_cache(maxsize=None)
+def _dft_select_planes(n: int, bins: tuple, dtype_name: str):
+    w = _dft_matrix(n, inverse=False)[:, list(bins)]
+    return (np.ascontiguousarray(w.real).astype(dtype_name),
+            np.ascontiguousarray(w.imag).astype(dtype_name))
+
+
+def _derot_select_matrix(n: int, bins: tuple, omega: torch.Tensor,
+                         sample_offset: int):
+    """Per-row derotated DFT matrix halves (top, bot), each [..., n, 2k],
+    such that ``xr @ top + xi @ bot`` is the DFT at ``bins`` of the symbol
+    derotated by exp(-i*omega*(sample_offset + p))."""
+    name = "float64" if omega.dtype == torch.float64 else "float32"
+    wr, wi = device_table(_dft_select_planes, (n, bins, name), omega.dtype,
+                          omega.device)
+    p_idx = torch.arange(n, dtype=omega.dtype, device=omega.device) \
+        + sample_offset
+    ang = omega[..., None] * p_idx                         # [..., n]
+    cr = torch.cos(ang)[..., :, None]                      # [..., n, 1]
+    ci = -torch.sin(ang)[..., :, None]
+    vr = cr * wr - ci * wi                                 # [..., n, k]
+    vi = cr * wi + ci * wr
+    top = torch.cat([vr, vi], dim=-1)                      # [..., n, 2k]
+    bot = torch.cat([-vi, vr], dim=-1)
+    return top, bot
+
+
+def dft_matmul_select_derot_planar(xr: torch.Tensor, xi: torch.Tensor,
+                                   bins: tuple, omega: torch.Tensor,
+                                   sample_offset: int = 0):
+    """DFT at ``bins`` of per-row CFO-derotated symbols, from real/imag planes.
+
+    xr, xi: f32[R, C, n] (strided views of the aligned planes are fine: the
+    product reads them in place).  omega: f32[R].  Computes
+    y[r, c, k] = sum_p x[r, c, p] exp(-i omega[r] (sample_offset + p)) W[p, bins[k]]
+    as ``xr @ top + xi @ bot`` with the within-symbol phasor folded into a
+    per-row matrix, so no derotated copy of the stream is made.  The
+    per-chunk phase exp(-i omega c sym_len) is left to the caller.
+
+    Returns planes (yr, yi), each [R, C, k]: two views of one contiguous
+    [R, C, 2k] product, with a row stride of C*2k and a block stride of 2k.
+    """
+    k = len(bins)
+    top, bot = _derot_select_matrix(xr.shape[-1], tuple(bins), omega,
+                                    sample_offset)
+    out = torch.baddbmm(torch.bmm(xr, top), xi, bot)
+    return out[..., :k], out[..., k:]
+
+
+@lru_cache(maxsize=None)
+def _packed_idft_rows_matrix(n: int, bins: tuple) -> np.ndarray:
+    w = _dft_matrix(n, inverse=True)[list(bins), :]        # [k, n]
+    return np.block([[w.real, w.imag], [-w.imag, w.real]])  # [2k, 2n]
+
+
+@lru_cache(maxsize=None)
+def _packed_idft_rows_cp_matrix(n: int, bins: tuple, cp_len: int) -> np.ndarray:
+    w = _packed_idft_rows_matrix(n, bins)
+    re, im = w[:, :n], w[:, n:]
+    re_cp = np.concatenate([re[:, n - cp_len:], re], axis=1)
+    im_cp = np.concatenate([im[:, n - cp_len:], im], axis=1)
+    return np.ascontiguousarray(np.concatenate([re_cp, im_cp], axis=1))
+
+
+def idft_matmul_rows_cp(x: torch.Tensor, bins: tuple, n: int,
+                        cp_len: int) -> torch.Tensor:
+    """Inverse DFT (1/N) of a spectrum nonzero only at ``bins``, with the
+    cyclic prefix folded into the matrix: complex[..., k] ->
+    complex[..., cp_len + n], the first cp_len samples repeating the tail."""
+    assert x.shape[-1] == len(bins)
+    w = device_table(_packed_idft_rows_cp_matrix, (n, tuple(bins), cp_len),
+                     real_dtype(x.dtype), x.device)
+    out = torch.cat([x.real, x.imag], dim=-1) @ w
+    m = n + cp_len
+    return torch.complex(out[..., :m], out[..., m:])

@@ -1,0 +1,57 @@
+"""The port must run where jax is absent: it imports neither jax nor
+anything of ofdm_tpu, and neither does chip_smoke.py."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "ofdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "ofdm_tpu"), f"{path} imports {mod}"
+
+
+ROUND_TRIP = """
+import sys
+sys.modules["jax"] = None          # any attempt to import jax now fails
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+import ofdm_tpu_torch as ott
+data = torch.arange(64, dtype=torch.uint8)
+tx = ott.encode(data, guard_bands=True, modulation=ott.Modulation.QAM16)
+rx = ott.channel(tx, snr=40.0, timing_error=True,
+                 generator=torch.Generator().manual_seed(1))
+nb = ott.n_data_blocks(64, ott.Modulation.QAM16, True)
+out = ott.decode_frame(rx, n_blocks=nb, guard_bands=True,
+                       modulation=ott.Modulation.QAM16)
+assert torch.equal(out[16:80], data), out
+assert bytes(ott.decode(rx, guard_bands=True,
+                        modulation=ott.Modulation.QAM16)) == bytes(range(64))
+assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)
+print("ok")
+"""
+
+
+def test_round_trip_without_jax():
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", ROUND_TRIP, str(ROOT)],
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -1,0 +1,242 @@
+"""The two kernels of the port: their plain versions against the JAX Pallas
+kernels (interpret mode), their wrappers' checks, and, on a CUDA device
+only, the kernels against their plain versions.
+
+sync_align moves samples, so windows compare bitwise once the offsets agree;
+the peaks here are well separated, as reduction order may resolve a
+near-exact tie differently (docs/PARITY.md).  eq_demod_pack compares bytes at
+operating SNR, where the equalizer's y/h vs y*(1/h) and the TPU kernel's
+polynomial atan2 sit orders of magnitude below the decision margin.
+
+JAX is imported only by the tests that compare with it, so the GPU tests
+here also run on a host without JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
+from ofdm_tpu_torch.kernels.align import sync_align, sync_align_reference
+from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
+from ofdm_tpu_torch.phy.modulation import BITS_PER_SYMBOL, modulate_bytes_packed
+
+torch.set_num_threads(1)
+
+DELAYS = [0, 1, 63, 127, 128, 129, 150, 200]
+T, NEED = 2560, 2400
+# the port's locking template, bitwise equal to ofdm_tpu's (test_torch_constants)
+TPL = constants.locking_for(DEFAULT_CONFIG).astype(np.complex64)
+TPL_C = (TPL * np.exp(0.7j)).astype(np.complex64)
+
+
+def _pallas():
+    """The JAX Pallas kernels (imported here: see the module docstring)."""
+    from ofdm_tpu.kernels import align_pallas, demod_pallas
+    return align_pallas, demod_pallas
+
+
+def _stream(tpl, seed=5, decoy_at=None):
+    rng = np.random.default_rng(seed)
+    s = 0.01 * (rng.standard_normal((len(DELAYS), T))
+                + 1j * rng.standard_normal((len(DELAYS), T)))
+    for i, d in enumerate(DELAYS):
+        s[i, d:d + len(tpl)] += tpl
+    if decoy_at is not None:
+        s[:, decoy_at:decoy_at + len(tpl)] += 2.0 * tpl
+    return s.astype(np.complex64)
+
+
+def _as_input(s: np.ndarray, planar_in: bool) -> torch.Tensor:
+    x = torch.as_tensor(s)
+    return torch.stack([x.real, x.imag], dim=1).contiguous() if planar_in else x
+
+
+@pytest.fixture(scope="module")
+def pallas_windows():
+    """JAX sync_align (interpret mode) outputs, keyed by (template, planar)."""
+    out = {}
+    for name, tpl in (("real", TPL), ("complex", TPL_C)):
+        s = _stream(tpl)
+        for planar in (False, True):
+            out[name, planar] = np.asarray(_pallas()[0].sync_align(
+                s, tpl, NEED, interpret=True, planar=planar))
+    return out
+
+
+@pytest.mark.parametrize("tpl_name", ["real", "complex"])
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("planar_in", [False, True])
+def test_sync_align_reference_matches_pallas(pallas_windows, tpl_name, planar,
+                                             planar_in):
+    tpl = TPL if tpl_name == "real" else TPL_C
+    x = _as_input(_stream(tpl), planar_in)
+    got, raw = sync_align_reference(x, tpl, NEED, planar=planar)
+    want = pallas_windows[tpl_name, planar]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(DELAYS) - 1)
+
+
+def test_sync_align_reference_search_window_matches_pallas():
+    s = _stream(TPL, seed=8, decoy_at=1500)   # a louder peak past the window
+    want = np.asarray(_pallas()[0].sync_align(s, TPL, NEED, interpret=True,
+                                              search_window=220))
+    got, raw = sync_align_reference(torch.as_tensor(s), TPL, NEED,
+                                    search_window=220)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(DELAYS) - 1)
+    _, raw_all = sync_align_reference(torch.as_tensor(s), TPL, NEED)
+    assert (raw_all.numpy() == 1499).all()
+
+
+def test_sync_align_on_cpu_runs_the_plain_version():
+    x = torch.as_tensor(_stream(TPL))
+    before = sync_align.launches
+    got, raw = sync_align(x, TPL, NEED, planar=True)
+    ref, raw_ref = sync_align_reference(x, TPL, NEED, planar=True)
+    assert torch.equal(got, ref) and torch.equal(raw, raw_ref)
+    assert raw.dtype == torch.int32 and sync_align.launches == before
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: (x, np.ones(129, np.complex64), NEED), NotImplementedError),
+    (lambda x: (x.real.contiguous(), TPL, NEED), ValueError),
+    (lambda x: (x[:, ::2], TPL, 1000), ValueError),
+    (lambda x: (x, TPL, T + 1), ValueError),
+])
+def test_sync_align_rejects_bad_input(bad, err):
+    with pytest.raises(err):
+        sync_align(*bad(torch.as_tensor(_stream(TPL))))
+
+
+def _tail_case(mod, guard_bands, seed=1, batch=3, nb=20):
+    """DFT-output planes with a known answer: symbols through a random
+    channel with a per-block pilot phase and noise at SNR 45 (55 for QAM256,
+    whose corner points the unit-power pilots' phase noise would otherwise
+    push to within half a decision margin)."""
+    snr = 55.0 if mod is Modulation.QAM256 else 45.0
+    rng = np.random.default_rng(seed)
+    cfg = DEFAULT_CONFIG
+    nd = len(cfg.data_indices) if guard_bands else cfg.n_fft
+    n_pilots = len(cfg.pilot_indices) if guard_bands else 0
+    sent = rng.integers(0, 256, (batch, nb * nd * BITS_PER_SYMBOL[mod] // 8),
+                        dtype=np.uint8)
+    x = modulate_bytes_packed(torch.as_tensor(sent), mod).numpy()
+    x = x.reshape(batch, nb, nd)
+    x = np.concatenate([x, np.ones((batch, nb, n_pilots))], axis=-1)
+    nbins = nd + n_pilots
+    h = (0.5 + rng.random((batch, nbins))) * np.exp(2j * np.pi * rng.random((batch, nbins)))
+    phi = np.exp(0.05j * rng.standard_normal((batch, nb, 1)))
+    y = x * h[:, None, :] * phi
+    amp = np.sqrt(np.mean(np.abs(y) ** 2) / 10 ** (snr / 10) / 2)
+    y = y + amp * (rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+    return y.astype(np.complex64), h.astype(np.complex64), nd, n_pilots, sent
+
+
+def _pallas_tail(y, h, nd, n_pilots, mod):
+    import ofdm_tpu as ot
+    return np.asarray(_pallas()[1].eq_demod_pack(
+        y.real.astype(np.float32), y.imag.astype(np.float32),
+        (1.0 / h).astype(np.complex64), n_data=nd, n_pilots=n_pilots,
+        modulation=ot.Modulation(mod.value), interpret=True))
+
+
+def _port_tail(y, h, f_delta, nd, n_pilots, mod):
+    packed = torch.as_tensor(np.concatenate([y.real, y.imag], axis=-1))
+    nbins = y.shape[-1]
+    return eq_demod_pack_reference(
+        packed[..., :nbins], packed[..., nbins:], torch.as_tensor(h),
+        torch.as_tensor(f_delta), n_data=nd, n_pilots=n_pilots,
+        modulation=mod, cfg=DEFAULT_CONFIG).numpy()
+
+
+TAIL_CASES = [(Modulation.QAM64, True), (Modulation.QPSK, True),
+              (Modulation.QAM256, True), (Modulation.BPSK, False),
+              (Modulation.QAM16, False)]
+
+
+@pytest.mark.parametrize("mod,guard_bands", TAIL_CASES,
+                         ids=lambda v: getattr(v, "value", str(v)))
+def test_eq_demod_pack_reference_matches_pallas(mod, guard_bands):
+    y, h, nd, n_pilots, sent = _tail_case(mod, guard_bands)
+    want = _pallas_tail(y, h, nd, n_pilots, mod)
+    got = _port_tail(y, h, np.zeros(len(y), np.float32), nd, n_pilots, mod)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, sent)
+
+
+@pytest.mark.parametrize("mod,guard_bands", TAIL_CASES[:2] + TAIL_CASES[3:4],
+                         ids=lambda v: getattr(v, "value", str(v)))
+def test_eq_demod_pack_reference_cfo_phase(mod, guard_bands):
+    """With f_delta != 0 the plain version undoes rot_dc itself; the Pallas
+    kernel, which cannot, is fed y * rot_dc and must give the same bytes."""
+    y, h, nd, n_pilots, sent = _tail_case(mod, guard_bands, seed=4)
+    cfg = DEFAULT_CONFIG
+    f_delta = (np.pi / 80 * np.random.default_rng(6).random(len(y))).astype(np.float32)
+    chunk = (np.arange(y.shape[1], dtype=np.float32) + cfg.n_sync_chunks) * cfg.sym_len
+    angle = f_delta[:, None] * chunk
+    y_cfo = (y * np.exp(1j * angle)[..., None]).astype(np.complex64)
+    rot_dc = np.exp(-1j * angle).astype(np.complex64)
+    want = _pallas_tail((y_cfo * rot_dc[..., None]).astype(np.complex64), h, nd,
+                        n_pilots, mod)
+    got = _port_tail(y_cfo, h, f_delta, nd, n_pilots, mod)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, sent)
+
+
+def test_eq_demod_pack_rejects_bad_input():
+    y, h, nd, n_pilots, _ = _tail_case(Modulation.QAM64, True)
+    yr = torch.as_tensor(y.real.copy())
+    yi = torch.as_tensor(y.imag.copy())
+    fd = torch.zeros(len(y))
+    kw = dict(n_pilots=n_pilots, modulation=Modulation.QAM64, cfg=DEFAULT_CONFIG)
+    with pytest.raises(ValueError, match="whole bytes"):
+        eq_demod_pack(yr, yi, torch.as_tensor(h), fd, n_data=nd - 1, **kw)
+    with pytest.raises(ValueError):
+        eq_demod_pack(yr.double(), yi, torch.as_tensor(h), fd, n_data=nd, **kw)
+    with pytest.raises(ValueError):
+        eq_demod_pack(yr, yi, torch.as_tensor(h), fd[:1], n_data=nd, **kw)
+    got = eq_demod_pack(yr, yi, torch.as_tensor(h), fd, n_data=nd, **kw)
+    assert got.dtype == torch.uint8 and got.shape == (len(y), y.shape[1] * 36)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py phases 2-3 run this "
+                    "check on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tpl_name", ["real", "complex"])
+def test_sync_align_kernel_matches_plain(tpl_name):
+    """Covered on the card by chip_smoke.py phase 2."""
+    dev = _cuda()
+    tpl = TPL if tpl_name == "real" else TPL_C
+    for planar_in in (False, True):
+        x = _as_input(_stream(tpl), planar_in).to(dev)
+        for planar in (False, True):
+            got, raw = sync_align(x, tpl, NEED, planar=planar)
+            ref, raw_ref = sync_align_reference(x, tpl, NEED, planar=planar)
+            assert torch.equal(raw, raw_ref) and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mod,guard_bands", TAIL_CASES,
+                         ids=lambda v: getattr(v, "value", str(v)))
+def test_eq_demod_pack_kernel_matches_plain(mod, guard_bands):
+    """Covered on the card by chip_smoke.py phase 3."""
+    dev = _cuda()
+    y, h, nd, n_pilots, _ = _tail_case(mod, guard_bands, seed=4)
+    packed = torch.as_tensor(np.concatenate([y.real, y.imag], -1)).to(dev)
+    nbins = y.shape[-1]
+    args = (packed[..., :nbins], packed[..., nbins:], torch.as_tensor(h).to(dev),
+            torch.full((len(y),), 0.01, device=dev))
+    kw = dict(n_data=nd, n_pilots=n_pilots, modulation=mod, cfg=DEFAULT_CONFIG)
+    assert torch.equal(eq_demod_pack(*args, **kw),
+                       eq_demod_pack_reference(*args, **kw))
