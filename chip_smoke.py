@@ -3,24 +3,41 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ofdm_tpu_torch/csrc/ and runs five phases:
+Builds the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per source, all
+at once) and runs eight phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
-  2. sync_align against its plain PyTorch version: headline shape with
+  2. sync_align (K1) against its plain PyTorch version: headline shape with
      complex and planar input, one ~1M-sample row, a search window, a
      complex template.  Windows and offsets must be identical;
-  3. eq_demod_pack against its plain version: headline shape QAM64 with a
-     CFO phase, QPSK, BPSK without guard bands.  Bytes must be identical;
+  3. eq_demod_pack (K2) against its plain version: headline shape QAM64 with
+     a CFO phase, QPSK, BPSK without guard bands, and QAM64 through a block
+     table (the chunked route's slot order).  Bytes must be identical;
   4. end to end on the card: 256 x 8,192-byte payloads, encode (QAM64,
      guard bands), channel at SNR 45 without and with CFO, decode_frame on
      both.  The clean batch must decode with 0 byte errors, >= 95% of the
-     CFO rows exactly, and the two calls must have launched each kernel
-     exactly twice.  Then decode_frame_planar must give the same bytes and
-     decode the payload (each one launch of each kernel), and on both
-     batches both kernels must equal their plain versions;
+     CFO rows exactly, and the two calls must have launched K1 and K2
+     exactly twice each and no other kernel.  Then decode_frame_planar must
+     give the same bytes and decode the payload (one launch each of K1 and
+     K2), and on both batches K1 and K2 must equal their plain versions;
   5. timing: decode_frame per step with CUDA events and its device busy time
-     from torch.profiler; each kernel's device time per call (profiler)
-     beside its plain version's.  The ``kernels`` line carries these.
+     from torch.profiler; K1's and K2's device time per call (profiler)
+     beside their plain versions';
+  6. planar_align (K3), sync_align_chunked (K4) and pin_rowmajor (K5)
+     against their plain versions at the headline shape (R = 256,
+     T = 19,120): K3 with offsets that include 0 and T - need, K4 on complex
+     and planar input (every lane of every slot), K5 on the planes of the
+     complex capture, view_as_real(rx).transpose(1, 2).  Each torch.equal;
+  7. end to end on the other routes, each with the phase-4 gates and exact
+     launch counts: decode_frame with sync_dtype=bfloat16 (K3 + K2; the
+     clean batch also with "fft" and "conv"),
+     align_impl="chunked" (K4 + K2) and decode_frame_planar chunked,
+     decode_frame_planar on the strided view (K5 + K1 + K2), and the
+     160-tap-template geometry (n_fft 128, cp 32, 3 training, 2 preamble
+     chunks) through decode_frame (K3 + K2) and decode on one row;
+  8. timing: decode_frame ms/step per route (CUDA events) and its device
+     busy time, and the device time per call of K3, K4 and K5 beside their
+     plain versions'.  The ``kernels`` line carries phases 5 and 8.
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
@@ -31,6 +48,7 @@ limit, one JSON object describing each kernel, and
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,7 +62,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import ofdm_tpu_torch as ott  # noqa: E402
 from ofdm_tpu_torch import constants  # noqa: E402
 from ofdm_tpu_torch.kernels import _build  # noqa: E402
-from ofdm_tpu_torch.kernels.align import sync_align, sync_align_reference  # noqa: E402
+from ofdm_tpu_torch.kernels.align import (pin_rowmajor,  # noqa: E402
+                                          pin_rowmajor_reference, planar_align,
+                                          planar_align_reference, sync_align,
+                                          sync_align_reference)
+from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
+                                          sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
 from ofdm_tpu_torch.phy.modulation import (BITS_PER_SYMBOL,  # noqa: E402
@@ -112,16 +135,26 @@ def device_ms(fn, sessions: int = 15) -> dict:
     return median
 
 
+KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
+           "planar_align": planar_align,
+           "sync_align_chunked": sync_align_chunked,
+           "pin_rowmajor": pin_rowmajor}
+
+
 def counted(fn):
-    """Run ``fn`` with both kernels' launch counters set to 0; return its
+    """Run ``fn`` with every kernel's launch counter set to 0; return its
     result and the counts it left."""
     torch.cuda.synchronize()
-    sync_align.launches = 0
-    eq_demod_pack.launches = 0
+    for k in KERNELS.values():
+        k.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {"sync_align": sync_align.launches,
-                 "eq_demod_pack": eq_demod_pack.launches}
+    return out, {name: k.launches for name, k in KERNELS.items()}
+
+
+def launches(**want) -> dict:
+    """The exact count dict of a route: the named kernels, every other 0."""
+    return {name: want.get(name, 0) for name in KERNELS}
 
 
 def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -232,7 +265,42 @@ def phase_eq_demod(gen, dev):
         print(f"phase 3 eq_demod_pack {mod.value} guard_bands={gb}: "
               f"B={yr.shape[0]} NB={yr.shape[1]} nbins={yr.shape[2]} "
               "bytes identical, payload exact")
+        if mod is ott.Modulation.QAM64:
+            # the chunked route's block table: blocks read in reverse order
+            blocks = torch.arange(yr.shape[1] - 1, -1, -1, dtype=torch.int32,
+                                  device=dev)
+            got = eq_demod_pack(yr, yi, h, fd, blocks=blocks, **kw)
+            ref = eq_demod_pack_reference(yr, yi, h, fd, blocks=blocks, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), "eq_demod_pack with a block table "
+                  "differs from plain")
+            print("phase 3 eq_demod_pack qam64 with a reversed block table: "
+                  "bytes identical")
     return worst
+
+
+def gates(out, data, name: str, cfo: bool) -> int:
+    """The phase-4 gates: 0 payload byte errors clean, >= 95% of the rows
+    exact with CFO.  Returns the exact rows."""
+    n = data.shape[1]
+    good = int((out[:, 16:16 + n] == data).all(dim=1).sum())
+    if cfo:
+        check(good >= 0.95 * data.shape[0],
+              f"{name}: only {good}/{data.shape[0]} CFO rows exact")
+    else:
+        errs = int((out[:, 16:16 + n] != data).sum())
+        check(errs == 0, f"{name}: {errs} payload byte errors on the clean batch")
+    return good
+
+
+def with_cfo(rx: torch.Tensor, gen, sym_len: int) -> torch.Tensor:
+    """rx rotated by a per-row CFO drawn uniformly in [0, 0.9 pi / sym_len),
+    inside the preamble estimator's range for this symbol length (the
+    channel's own CFO is sized for 80-sample symbols)."""
+    f = 0.9 * math.pi / sym_len * torch.rand(rx.shape[0], generator=gen,
+                                             device=rx.device)
+    n = torch.arange(1, rx.shape[1] + 1, device=rx.device, dtype=torch.float32)
+    return rx * torch.polar(torch.ones_like(f[:, None] * n), f[:, None] * n)
 
 
 def main() -> None:
@@ -247,9 +315,10 @@ def main() -> None:
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    libs = [_build.build("sync_align"), _build.build("eq_demod_pack")]
+    libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"phase 1 build: {build_s:.2f} s into {_build.BUILD_DIR}")
+    print(f"phase 1 build: {build_s:.2f} s for {len(libs)} sources, in "
+          f"parallel, into {_build.BUILD_DIR}")
     for so in libs:
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -274,27 +343,25 @@ def main() -> None:
     planes_in = torch.stack([rx_clean.real, rx_clean.imag], dim=1).contiguous()
     kw = dict(n_blocks=nb, guard_bands=True, modulation=MOD)
     # the main path alone between zeroing and reading the counters
-    (out_clean, out_cfo), launches = counted(
+    (out_clean, out_cfo), n_default = counted(
         lambda: (ott.decode_frame(rx_clean, **kw), ott.decode_frame(rx_cfo, **kw)))
-    check(launches == {"sync_align": 2, "eq_demod_pack": 2},
-          f"decode_frame x2 launched {launches}, want 2 of each kernel")
+    check(n_default == launches(sync_align=2, eq_demod_pack=2),
+          f"decode_frame x2 launched {n_default}, want 2 each of K1 and K2")
     check(tuple(out_clean.shape) == (BATCH, nb * 36),
           f"decode_frame shape {tuple(out_clean.shape)}")
-    errs = int((out_clean[:, 16:16 + PAYLOAD] != data).sum())
-    check(errs == 0, f"clean batch: {errs} payload byte errors")
-    good = int((out_cfo[:, 16:16 + PAYLOAD] == data).all(dim=1).sum())
-    check(good >= 0.95 * BATCH, f"CFO batch: only {good}/{BATCH} rows exact")
+    gates(out_clean, data, "decode_frame", cfo=False)
+    good = gates(out_cfo, data, "decode_frame", cfo=True)
     print(f"phase 4 end to end: decode_frame on {BATCH} x {PAYLOAD} B QAM64 "
           f"SNR {SNR}, T={frame}: clean byte errors 0; CFO rows exact "
-          f"{good}/{BATCH}; launches {launches}")
+          f"{good}/{BATCH}; launches {n_default}")
 
     out_planar, n_planar = counted(lambda: ott.decode_frame_planar(planes_in, **kw))
-    check(n_planar == {"sync_align": 1, "eq_demod_pack": 1},
+    check(n_planar == launches(sync_align=1, eq_demod_pack=1),
           f"decode_frame_planar launched {n_planar}")
     check(torch.equal(out_planar, out_clean), "decode_frame_planar differs")
     payload0, n_decode = counted(
         lambda: ott.decode(rx_clean[0], guard_bands=True, modulation=MOD))
-    check(n_decode == {"sync_align": 1, "eq_demod_pack": 1},
+    check(n_decode == launches(sync_align=1, eq_demod_pack=1),
           f"decode launched {n_decode}")
     check(payload0.shape == (PAYLOAD,)
           and bool((torch.as_tensor(payload0, device=dev) == data[0]).all()),
@@ -304,7 +371,8 @@ def main() -> None:
 
     # K1 and K2 against their plain versions at the main path's own shapes
     need = (ott.DEFAULT_CONFIG.n_sync_chunks + nb) * 80
-    tail_kw = dict(n_data=48, n_pilots=4, modulation=MOD, cfg=ott.DEFAULT_CONFIG)
+    tail_kw = dict(guard_bands=True, modulation=MOD, cfg=ott.DEFAULT_CONFIG)
+    plain_kw = dict(n_data=48, n_pilots=4, modulation=MOD, cfg=ott.DEFAULT_CONFIG)
     for name, x in (("clean", rx_clean), ("CFO", rx_cfo)):
         planes, raw = sync_align(x, template, need, planar=True)
         planes_ref, raw_ref = sync_align_reference(x, template, need, planar=True)
@@ -314,17 +382,20 @@ def main() -> None:
         k1_err = max(k1_err, diff)
         check(diff == 0.0, f"{name} batch: sync_align window differs by {diff}")
         cp = planes.reshape(BATCH, 2, -1, 80)
-        ti = rx_mod._tail_inputs(cp[:, 0], cp[:, 1], guard_bands=True,
-                                 cfg=ott.DEFAULT_CONFIG, cfo_estimator="coherent")
-        k2 = eq_demod_pack(*ti, **tail_kw)
-        k2_ref = eq_demod_pack_reference(*ti, **tail_kw)
+        yr, yi, h_k, f_delta = rx_mod._matrix_front(
+            cp[:, 0], cp[:, 1], guard_bands=True, cfg=ott.DEFAULT_CONFIG,
+            cfo_estimator="coherent")
+        k2 = rx_mod._tail(yr, yi, h_k, f_delta, **tail_kw)
+        sel = list(rx_mod._selected_bins(True, ott.DEFAULT_CONFIG)[0])
+        ti = (yr, yi, h_k[:, sel].contiguous(), f_delta)
+        k2_ref = eq_demod_pack_reference(*ti, **plain_kw)
         k2_err = max(k2_err, (k2.int() - k2_ref.int()).abs().max().item())
         check(torch.equal(k2, k2_ref), f"{name} batch: eq_demod_pack differs "
               "from plain")
         print(f"phase 4 {name} batch at R={BATCH} T={x.shape[1]}: sync_align "
               "offsets and planes, eq_demod_pack bytes identical to plain")
 
-    # phase 5: timing
+    # phase 5: timing of the default route
     step_ms = time_ms(lambda: ott.decode_frame(rx_clean, **kw))
     n_samples = rx_clean.shape[0] * rx_clean.shape[1]
     step_kernels = device_ms(lambda: ott.decode_frame(rx_clean, **kw))
@@ -340,29 +411,184 @@ def main() -> None:
     # per kernel: device time per call from the profiler, plain version
     # beside; K1 on the clean rows, K2 on the CFO batch's tail inputs
     dev_ms = {}
-    for label, fn in [
-            ("sync_align", lambda: sync_align(rx_clean, template, need, planar=True)),
-            ("sync_align plain", lambda: sync_align_reference(rx_clean, template,
-                                                              need, planar=True)),
-            ("eq_demod_pack", lambda: eq_demod_pack(*ti, **tail_kw)),
-            ("eq_demod_pack plain", lambda: eq_demod_pack_reference(*ti, **tail_kw))]:
+
+    def time_kernels(phase, cases):
+        for label, fn in cases:
+            dk = device_ms(fn)
+            dev_ms[label] = sum(dk.values())
+            print(f"phase {phase} device time {label}: {dev_ms[label]:.4f} "
+                  f"ms/call in {len(dk)} kernel names on {name_limit}")
+
+    time_kernels(5, [
+        ("sync_align", lambda: sync_align(rx_clean, template, need, planar=True)),
+        ("sync_align plain", lambda: sync_align_reference(rx_clean, template,
+                                                          need, planar=True)),
+        ("eq_demod_pack", lambda: eq_demod_pack(*ti, **plain_kw)),
+        ("eq_demod_pack plain", lambda: eq_demod_pack_reference(*ti, **plain_kw))])
+
+    # phase 6: K3, K4 and K5 against their plain versions at the headline shape
+    t = rx_clean.shape[1]
+    offs = torch.randint(0, t - need + 1, (BATCH,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    offs[0], offs[1] = 0, t - need
+    k3_err = k4_err = k5_err = 0.0
+    for name, x in (("complex", rx_clean), ("planar", planes_in)):
+        for planar in (False, True):
+            got = planar_align(x, offs, need, planar=planar)
+            ref = planar_align_reference(x, offs, need, planar=planar)
+            torch.cuda.synchronize()
+            diff = (got - ref).abs().max().item()
+            k3_err = max(k3_err, diff)
+            check(torch.equal(got, ref), f"planar_align {name} in, planar="
+                  f"{planar}: differs from plain by {diff}")
+    print(f"phase 6 planar_align: R={BATCH} T={t} need={need}, offsets 0..T-need "
+          "(0 and T-need included), complex and planar in and out: identical")
+    n_chunks = ott.DEFAULT_CONFIG.n_sync_chunks + nb
+    for name, x in (("complex clean", rx_clean), ("planar clean", planes_in),
+                    ("complex CFO", rx_cfo)):
+        (gr, gi), slots, m_per = sync_align_chunked(x, template, n_chunks=n_chunks)
+        (rr, ri), _, _ = sync_align_chunked_reference(x, template,
+                                                      n_chunks=n_chunks)
+        torch.cuda.synchronize()
+        check(slots >= n_chunks, f"chunk geometry {slots} slots, {m_per}")
+        diff = max((gr - rr).abs().max().item(), (gi - ri).abs().max().item())
+        k4_err = max(k4_err, diff)
+        check(torch.equal(gr, rr) and torch.equal(gi, ri),
+              f"sync_align_chunked {name}: differs from plain by {diff}")
+    print(f"phase 6 sync_align_chunked: R={BATCH} T={t} n_chunks={n_chunks} -> "
+          f"2 x [{BATCH}, {slots}, 128], complex and planar in, every lane "
+          "identical to plain")
+    view = torch.view_as_real(rx_clean).transpose(1, 2)
+    got = pin_rowmajor(view)
+    ref = pin_rowmajor_reference(view)
+    torch.cuda.synchronize()
+    k5_err = (got - ref).abs().max().item()
+    check(torch.equal(got, ref) and got.is_contiguous(),
+          f"pin_rowmajor differs from plain by {k5_err}")
+    print(f"phase 6 pin_rowmajor: view_as_real(rx).transpose(1, 2) "
+          f"{tuple(view.shape)} strides {view.stride()} -> row-major, identical")
+
+    # phase 7: the other routes end to end, each with exact launch counts
+    routes = {"default (K1 + K2)": lambda: ott.decode_frame(rx_clean, **kw)}
+    bf = dict(kw, sync_dtype=torch.bfloat16)
+    (b_clean, b_cfo), n_bf = counted(
+        lambda: (ott.decode_frame(rx_clean, **bf), ott.decode_frame(rx_cfo, **bf)))
+    check(n_bf == launches(planar_align=2, eq_demod_pack=2),
+          f"decode_frame(sync_dtype=bfloat16) x2 launched {n_bf}")
+    gates(b_clean, data, "bf16 sync", cfo=False)
+    good = gates(b_cfo, data, "bf16 sync", cfo=True)
+    routes["sync_dtype=bfloat16 (K3 + K2)"] = (lambda: ott.decode_frame(rx_clean, **bf))
+    print(f"phase 7 decode_frame sync_dtype=bfloat16: clean byte errors 0; CFO "
+          f"rows exact {good}/{BATCH}; launches {n_bf}")
+    for sd in ("fft", "conv"):
+        out_sd, n_sd = counted(lambda: ott.decode_frame(rx_clean, sync_dtype=sd,
+                                                        **kw))
+        check(n_sd == launches(planar_align=1, eq_demod_pack=1),
+              f"decode_frame(sync_dtype={sd!r}) launched {n_sd}")
+        gates(out_sd, data, f"{sd} sync", cfo=False)
+        print(f"phase 7 decode_frame sync_dtype={sd!r}: clean byte errors 0; "
+              f"launches {n_sd}")
+
+    ch = dict(kw, align_impl="chunked")
+    (c_clean, c_cfo), n_ch = counted(
+        lambda: (ott.decode_frame(rx_clean, **ch), ott.decode_frame(rx_cfo, **ch)))
+    check(n_ch == launches(sync_align_chunked=2, eq_demod_pack=2),
+          f"decode_frame(align_impl='chunked') x2 launched {n_ch}")
+    gates(c_clean, data, "chunked", cfo=False)
+    good = gates(c_cfo, data, "chunked", cfo=True)
+    c_planar, n_chp = counted(lambda: ott.decode_frame_planar(planes_in, **ch))
+    check(n_chp == launches(sync_align_chunked=1, eq_demod_pack=1),
+          f"decode_frame_planar(align_impl='chunked') launched {n_chp}")
+    check(torch.equal(c_planar, c_clean), "chunked: planar input differs")
+    routes["align_impl=chunked (K4 + K2)"] = (lambda: ott.decode_frame(rx_clean, **ch))
+    print(f"phase 7 decode_frame align_impl=chunked: clean byte errors 0; CFO "
+          f"rows exact {good}/{BATCH}; launches {n_ch}; decode_frame_planar "
+          f"chunked equal, launches {n_chp}")
+
+    out_view, n_view = counted(lambda: ott.decode_frame_planar(view, **kw))
+    check(n_view == launches(pin_rowmajor=1, sync_align=1, eq_demod_pack=1),
+          f"decode_frame_planar on the strided view launched {n_view}")
+    check(torch.equal(out_view, out_clean), "strided planar view differs")
+    routes["decode_frame_planar, strided view (K5 + K1 + K2)"] = (
+        lambda: ott.decode_frame_planar(view, **kw))
+    print(f"phase 7 decode_frame_planar on the strided view: bytes equal "
+          f"decode_frame's; launches {n_view}")
+
+    cfg160 = ott.FrameConfig(n_fft=128, cp_len=32, n_training=3, n_preamble=2,
+                             locking_seed=7)
+    nb160 = ott.n_data_blocks(PAYLOAD, MOD, True, cfg160)
+    frame160 = cfg160.sync_len + cfg160.sym_len + nb160 * cfg160.sym_len
+    rx160 = pad_rows(ott.channel(ott.encode(data, guard_bands=True,
+                                            modulation=MOD, cfg=cfg160),
+                                 snr=SNR, generator=gen), frame160)
+    rx160_cfo = with_cfo(rx160, gen, cfg160.sym_len)
+    kw160 = dict(kw, n_blocks=nb160, cfg=cfg160)
+    (g_clean, g_cfo), n_160 = counted(
+        lambda: (ott.decode_frame(rx160, **kw160),
+                 ott.decode_frame(rx160_cfo, **kw160)))
+    check(n_160 == launches(planar_align=2, eq_demod_pack=2),
+          f"decode_frame 160-tap x2 launched {n_160}")
+    gates(g_clean, data, "160-tap decode_frame", cfo=False)
+    good = gates(g_cfo, data, "160-tap decode_frame", cfo=True)
+    pay160, n_d160 = counted(lambda: ott.decode(rx160[0], guard_bands=True,
+                                                modulation=MOD, cfg=cfg160))
+    check(n_d160 == launches(planar_align=1, eq_demod_pack=1),
+          f"decode 160-tap launched {n_d160}")
+    check(pay160.shape == (PAYLOAD,)
+          and bool((torch.as_tensor(pay160, device=dev) == data[0]).all()),
+          "decode 160-tap: payload differs")
+    routes["160-tap geometry (K3 + K2)"] = (lambda: ott.decode_frame(rx160, **kw160))
+    print(f"phase 7 160-tap geometry (n_fft 128, sym 160, {nb160} blocks, "
+          f"T={frame160}): decode_frame clean byte errors 0, CFO rows exact "
+          f"{good}/{BATCH}, launches {n_160}; decode one row: payload exact, "
+          f"launches {n_d160}")
+
+    # phase 8: per-route step time, and K3, K4, K5 against their plain versions
+    # timed again here beside the default route: the profiler sessions above
+    # may leave the host slower than it was in phase 5
+    print(f"phase 8 decode_frame per route on {name_limit} ({BATCH} rows, "
+          f"QAM64, T={t} (160-tap: {frame160}), CUDA events median of {REPS}; "
+          "device busy from torch.profiler):")
+    for label, fn in routes.items():
+        ms = time_ms(fn)
         dk = device_ms(fn)
-        dev_ms[label] = sum(dk.values())
-        print(f"phase 5 device time {label}: {dev_ms[label]:.4f} ms/call "
-              f"in {len(dk)} kernel names on {name_limit}")
+        b = sum(dk.values())
+        print(f"  {ms:.4f} ms/step, busy {b:.4f}, idle share {1 - b / ms:.3f}  "
+              f"{label}; top kernels:")
+        for kname, kms in sorted(dk.items(), key=lambda kv: -kv[1])[:4]:
+            print(f"    {kms:.4f}  {kname[:100]}")
+    time_kernels(8, [
+        ("planar_align", lambda: planar_align(rx_clean, offs, need, planar=True)),
+        ("planar_align plain", lambda: planar_align_reference(rx_clean, offs,
+                                                              need, planar=True)),
+        ("sync_align_chunked", lambda: sync_align_chunked(rx_clean, template,
+                                                          n_chunks=n_chunks)),
+        ("sync_align_chunked plain", lambda: sync_align_chunked_reference(
+            rx_clean, template, n_chunks=n_chunks)),
+        ("pin_rowmajor", lambda: pin_rowmajor(view)),
+        ("pin_rowmajor plain", lambda: pin_rowmajor_reference(view))])
+
+    def entry(name, source, replaces, n, err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": dev_ms[name], "plain_ms": dev_ms[f"{name} plain"]}
 
     kernels = [
-        {"name": "sync_align", "route": "cuda",
-         "source": "ofdm_tpu_torch/csrc/sync_align.cu",
-         "replaces": "ofdm_tpu/kernels/align_pallas.py:126",
-         "launches": launches["sync_align"], "max_abs_err": k1_err,
-         "ms": dev_ms["sync_align"], "plain_ms": dev_ms["sync_align plain"]},
-        {"name": "eq_demod_pack", "route": "cuda",
-         "source": "ofdm_tpu_torch/csrc/eq_demod_pack.cu",
-         "replaces": "ofdm_tpu/kernels/demod_pallas.py:166",
-         "launches": launches["eq_demod_pack"], "max_abs_err": k2_err,
-         "ms": dev_ms["eq_demod_pack"],
-         "plain_ms": dev_ms["eq_demod_pack plain"]},
+        entry("sync_align", "ofdm_tpu_torch/csrc/sync_align.cu",
+              "ofdm_tpu/kernels/align_pallas.py:126",
+              n_default["sync_align"], k1_err),
+        entry("eq_demod_pack", "ofdm_tpu_torch/csrc/eq_demod_pack.cu",
+              "ofdm_tpu/kernels/demod_pallas.py:166",
+              n_default["eq_demod_pack"], k2_err),
+        entry("planar_align", "ofdm_tpu_torch/csrc/sync_align.cu",
+              "ofdm_tpu/kernels/align_pallas.py:51",
+              n_bf["planar_align"], k3_err),
+        entry("sync_align_chunked", "ofdm_tpu_torch/csrc/sync_align.cu",
+              "ofdm_tpu/kernels/chain_pallas.py:139",
+              n_ch["sync_align_chunked"], k4_err),
+        entry("pin_rowmajor", "ofdm_tpu_torch/csrc/pin_rowmajor.cu",
+              "ofdm_tpu/kernels/align_pallas.py:237",
+              n_view["pin_rowmajor"], k5_err),
     ]
     print(name_limit)
     print(json.dumps({"kernels": kernels}))

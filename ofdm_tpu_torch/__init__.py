@@ -16,7 +16,8 @@ to False first.  The kernels build with ``nvcc`` at first use into
 from .config import DEFAULT_CONFIG, FrameConfig
 from .phy.channel import channel
 from .phy.modulation import Modulation
-from .phy.rx import (DecodeError, decode, decode_frame, decode_frame_planar,
+from .phy.rx import (DecodeError, decode, decode_aligned, decode_chunked_matrix,
+                     decode_frame, decode_frame_planar, decode_planar_matrix,
                      sync_offset)
 from .phy.tx import encode, encode_payload, frame_len, n_data_blocks
 
@@ -27,8 +28,11 @@ __all__ = [
     "Modulation",
     "channel",
     "decode",
+    "decode_aligned",
+    "decode_chunked_matrix",
     "decode_frame",
     "decode_frame_planar",
+    "decode_planar_matrix",
     "encode",
     "encode_payload",
     "frame_len",

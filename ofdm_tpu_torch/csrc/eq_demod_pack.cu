@@ -4,7 +4,9 @@
 // (_demod_kernel, _atan2_soft, _gray_planes, _pack_matrix_lanes) and extends
 // it with the per-chunk CFO phase, which the TPU kernel could not take
 // (ofdm_tpu/phy/rx.py:277-282).  Per OFDM block (row b, data block c) of
-// the DFT output y at nbins selected bins (data bins first, then pilots):
+// the DFT output y at nbins selected bins (data bins first, then pilots),
+// read from input block blocks[c] when a block table is given (the chunked
+// route's slot of chunk c + chunk0, ofdm_tpu/phy/rx.py:742-828), else c:
 //
 //   rot   = exp(-j * f_delta[b] * ((c + chunk0) * sym_len))   (rx.py rot_dc)
 //   e     = (y * rot) * (1 / h[b])                            (equalize)
@@ -69,8 +71,9 @@ eq_demod_pack_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
                      long long row_stride, long long blk_stride, int nb,
                      int n_data, int n_pilots, const float2* __restrict__ h,
                      int nbins, const float* __restrict__ f_delta, int chunk0,
-                     int sym_len, long long total,
-                     unsigned char* __restrict__ out, int bytes_per_block) {
+                     int sym_len, const int* __restrict__ blocks,
+                     long long total, unsigned char* __restrict__ out,
+                     int bytes_per_block) {
   extern __shared__ unsigned char s_codes[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -79,8 +82,9 @@ eq_demod_pack_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
   const long long b = g / nb;
   const int c = static_cast<int>(g - b * nb);
   unsigned char* codes = s_codes + warp * n_data;
-  const float* pr = yr + b * row_stride + c * blk_stride;
-  const float* pi = yi + b * row_stride + c * blk_stride;
+  const long long src = blocks != nullptr ? blocks[c] : c;
+  const float* pr = yr + b * row_stride + src * blk_stride;
+  const float* pi = yi + b * row_stride + src * blk_stride;
   const float2* hb = h + b * nbins;
 
   // (c + chunk0) * sym_len is an exact integer below 2^24: the same f32
@@ -135,28 +139,30 @@ template <int kBps>
 int launch(const float* yr, const float* yi, long long row_stride,
            long long blk_stride, int nb, int n_data, int n_pilots,
            const float2* h, int nbins, const float* f_delta, int chunk0,
-           int sym_len, long long total, unsigned char* out,
+           int sym_len, const int* blocks, long long total, unsigned char* out,
            cudaStream_t stream) {
   const long long grid = (total + kWarps - 1) / kWarps;
   if (grid > 0x7FFFFFFFll) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(kWarps) * n_data;
   eq_demod_pack_kernel<kBps><<<static_cast<unsigned>(grid), kWarps * 32, smem, stream>>>(
       yr, yi, row_stride, blk_stride, nb, n_data, n_pilots, h, nbins, f_delta,
-      chunk0, sym_len, total, out, n_data * kBps / 8);
+      chunk0, sym_len, blocks, total, out, n_data * kBps / 8);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // yr/yi: f32 planes with element (b, c, bin) at b*row_stride + c*blk_stride +
-// bin.  h: complex64 [batch, nbins].  f_delta: f32 [batch].  out: uint8
-// [batch, nb * n_data * bps / 8].  Returns a cudaError_t (0 on success).
+// bin.  h: complex64 [batch, nbins].  f_delta: f32 [batch].  blocks: null, or
+// int32 [nb], the input block of each output block (trusted to lie inside
+// the planes).  out: uint8 [batch, nb * n_data * bps / 8].  Returns a
+// cudaError_t (0 on success).
 extern "C" int ofdm_eq_demod_pack(const void* yr, const void* yi,
                                   long long row_stride, long long blk_stride,
                                   int batch, int nb, int nbins, int n_data,
                                   int n_pilots, int bps, const void* h,
                                   const void* f_delta, int chunk0, int sym_len,
-                                  void* out, void* stream) {
+                                  const void* blocks, void* out, void* stream) {
   if (batch <= 0 || nb <= 0 || n_data <= 0 || n_pilots < 0 ||
       n_data + n_pilots > nbins || (n_data * bps) % 8 != 0 ||
       kWarps * n_data > 48 * 1024 || (nb + chunk0) * static_cast<long long>(sym_len) >= (1 << 24)) {
@@ -167,14 +173,15 @@ extern "C" int ofdm_eq_demod_pack(const void* yr, const void* yi,
   auto* pyi = static_cast<const float*>(yi);
   auto* ph = static_cast<const float2*>(h);
   auto* pf = static_cast<const float*>(f_delta);
+  auto* pb = static_cast<const int*>(blocks);
   auto* po = static_cast<unsigned char*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bps) {
-    case 1: return launch<1>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, total, po, s);
-    case 2: return launch<2>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, total, po, s);
-    case 4: return launch<4>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, total, po, s);
-    case 6: return launch<6>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, total, po, s);
-    case 8: return launch<8>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, total, po, s);
+    case 1: return launch<1>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, pb, total, po, s);
+    case 2: return launch<2>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, pb, total, po, s);
+    case 4: return launch<4>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, pb, total, po, s);
+    case 6: return launch<6>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, pb, total, po, s);
+    case 8: return launch<8>(py, pyi, row_stride, blk_stride, nb, n_data, n_pilots, ph, nbins, pf, chunk0, sym_len, pb, total, po, s);
     default: return cudaErrorInvalidValue;
   }
 }

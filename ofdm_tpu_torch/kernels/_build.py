@@ -44,21 +44,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this tree's library already exists."""
-    so = library_path(name)
-    if so.exists():
-        return so
+def _start(name: str, so: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), tmp
+
+
+def _finish(name: str, so: Path, proc: subprocess.Popen, tmp: Path) -> None:
+    _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stderr)
+                           f"(exit {proc.returncode}):\n{err}")
+    so.with_suffix(".log").write_text(err)
     os.replace(tmp, so)      # atomic: a concurrent build never sees half a file
-    return so
+
+
+def build_all(names: tuple[str, ...] | None = None) -> list[Path]:
+    """Compile ``csrc/<name>.cu`` for each name (every source by default)
+    whose library this tree lacks, one ``nvcc`` per source, all started at
+    once.  Returns the libraries' paths in the order of ``names``."""
+    if names is None:
+        names = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    paths = [library_path(n) for n in names]
+    started = [(n, so, *_start(n, so)) for n, so in zip(names, paths)
+               if not so.exists()]
+    try:
+        for n, so, proc, tmp in started:
+            _finish(n, so, proc, tmp)
+    finally:                 # after a failure, stop the builds still running
+        for _, _, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return paths
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless this tree's library already exists."""
+    return build_all((name,))[0]
 
 
 @lru_cache(maxsize=None)

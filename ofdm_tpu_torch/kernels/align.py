@@ -1,7 +1,13 @@
-"""Fused frame sync + alignment: the ``sync_align`` kernel and its plain version.
+"""Frame alignment kernels of ofdm_tpu/kernels/align_pallas.py, with their
+plain versions:
 
-Kernel 1 of the port (``csrc/sync_align.cu``), replacing the TPU kernel
-``ofdm_tpu/kernels/align_pallas.py::sync_align``.  Per row: correlate the
+- ``sync_align`` (kernel 1, ``csrc/sync_align.cu``): fused sync + window copy;
+- ``planar_align`` (kernel 3, same library): the window copy alone, at
+  offsets computed outside (the unfused route);
+- ``pin_rowmajor`` (kernel 5, ``csrc/pin_rowmajor.cu``): a row-major copy of
+  a strided view.
+
+``sync_align``, replacing ``align_pallas.py::sync_align``.  Per row: correlate the
 stream with the locking template (at most 128 taps), take the first lag of
 maximal power below ``lag_bound``, and copy the ``need``-sample window that
 starts one sample before it (the reference's argmax - 1, src/receiver.rs:20-25),
@@ -19,7 +25,7 @@ lag range) is not ported; every input here scans lags [0, lag_bound) with
 
 The kernel sums each correlation in another order than the plain version's
 matmul, so a near-exact tie between two peak lags may resolve to the other,
-equally valid, lag (docs/PARITY.md).
+equally valid, lag (ofdm_tpu_torch/PARITY.md).
 """
 
 from __future__ import annotations
@@ -36,17 +42,23 @@ from ..ops.xcorr import (MAX_TAPS, _template_is_real, sliding_correlation_matmul
 from . import _build
 
 
-def _check(flat: torch.Tensor, template, need: int, search_window):
-    """Validate the arguments; return (rows, T, complex64 template, lag_bound)."""
+def check_input(flat: torch.Tensor, what: str):
+    """(rows, T) of a contiguous complex64 [R, T] or f32 [R, 2, T] input."""
     if flat.dtype == torch.complex64 and flat.dim() == 2:
         r, t = flat.shape
     elif flat.dtype == torch.float32 and flat.dim() == 3 and flat.shape[1] == 2:
         r, _, t = flat.shape
     else:
-        raise ValueError("sync_align takes complex64 [R, T] or float32 "
+        raise ValueError(f"{what} takes complex64 [R, T] or float32 "
                          f"[R, 2, T], got {flat.dtype} {tuple(flat.shape)}")
     if not flat.is_contiguous():
-        raise ValueError("sync_align needs a contiguous input")
+        raise ValueError(f"{what} needs a contiguous input")
+    return r, t
+
+
+def _check(flat: torch.Tensor, template, need: int, search_window):
+    """Validate the arguments; return (rows, T, complex64 template, lag_bound)."""
+    r, t = check_input(flat, "sync_align")
     tpl = np.asarray(template).astype(np.complex64)
     if tpl.ndim != 1 or tpl.shape[0] == 0:
         raise ValueError("the template must be a non-empty 1-D array")
@@ -54,8 +66,8 @@ def _check(flat: torch.Tensor, template, need: int, search_window):
     if k > MAX_TAPS:
         raise NotImplementedError(
             f"sync_align takes templates of at most {MAX_TAPS} taps; longer "
-            "ones need the unfused route (sync, then the planar_align copy, "
-            "K3 in ROADMAP.md Queue 2), which is not ported yet")
+            "ones take the unfused route: ops.xcorr.locking_sync_offset, "
+            "then planar_align")
     if not 0 < need <= t:
         raise ValueError(f"need={need} must lie in [1, T={t}]")
     lag_bound = t if search_window is None else min(t, search_window + k)
@@ -64,7 +76,7 @@ def _check(flat: torch.Tensor, template, need: int, search_window):
     return r, t, tpl, lag_bound
 
 
-def _window_strides(x: torch.Tensor):
+def window_strides(x: torch.Tensor):
     """(row, plane, element) strides in floats of a complex64 [R, n] or an
     f32 [R, 2, n] tensor."""
     if x.dtype == torch.complex64:
@@ -72,33 +84,47 @@ def _window_strides(x: torch.Tensor):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def sync_align_reference(flat: torch.Tensor, template, need: int,
-                         search_window: int | None = None,
-                         planar: bool = False):
-    """Plain version of ``sync_align``: ``locking_sync_offset``'s matmul
-    correlation restricted to lags < lag_bound, clip, then a gather."""
-    r, t, tpl, lag_bound = _check(flat, template, need, search_window)
-    planar_in = flat.dim() == 3
-    cplx = torch.complex(flat[:, 0], flat[:, 1]) if planar_in else flat
+def reference_offsets(flat: torch.Tensor, tpl: np.ndarray,
+                      lag_bound: int) -> torch.Tensor:
+    """The kernels' raw offsets the plain way: ``locking_sync_offset``'s
+    matmul correlation restricted to lags < lag_bound, argmax - 1 (int64)."""
+    t = flat.shape[-1]
+    cplx = torch.complex(flat[:, 0], flat[:, 1]) if flat.dim() == 3 else flat
     # lags < lag_bound only read samples below lag_bound + K - 1
     c = sliding_correlation_matmul(cplx[:, :min(t, lag_bound + len(tpl) - 1)],
                                    tpl)[:, :lag_bound]
-    raw = torch.argmax(c.real ** 2 + c.imag ** 2, dim=-1) - 1
-    off = torch.clamp(raw, 0, t - need)
-    idx = off[:, None] + torch.arange(need, device=flat.device)
-    if planar_in:
+    return torch.argmax(c.real ** 2 + c.imag ** 2, dim=-1) - 1
+
+
+def _gather_windows(flat: torch.Tensor, off: torch.Tensor, need: int,
+                    planar: bool) -> torch.Tensor:
+    """Row r of complex64 [R, T] or f32 [R, 2, T] from off[r], ``need``
+    samples, as complex64 [R, need] or f32 planes [R, 2, need]."""
+    r = flat.shape[0]
+    idx = off[:, None].long() + torch.arange(need, device=flat.device)
+    if flat.dim() == 3:
         win = flat.gather(2, idx[:, None, :].expand(r, 2, need))  # [R, 2, need]
-        out = win if planar else torch.complex(win[:, 0], win[:, 1])
-    else:
-        win = torch.view_as_real(flat).gather(
-            1, idx[:, :, None].expand(r, need, 2))                # [R, need, 2]
-        out = win.permute(0, 2, 1).contiguous() if planar \
-            else torch.view_as_complex(win.contiguous())
+        return win if planar else torch.complex(win[:, 0], win[:, 1])
+    win = torch.view_as_real(flat).gather(
+        1, idx[:, :, None].expand(r, need, 2))                    # [R, need, 2]
+    return win.permute(0, 2, 1).contiguous() if planar \
+        else torch.view_as_complex(win.contiguous())
+
+
+def sync_align_reference(flat: torch.Tensor, template, need: int,
+                         search_window: int | None = None,
+                         planar: bool = False):
+    """Plain version of ``sync_align``: ``reference_offsets``, clip, then a
+    gather."""
+    _, t, tpl, lag_bound = _check(flat, template, need, search_window)
+    raw = reference_offsets(flat, tpl, lag_bound)
+    out = _gather_windows(flat, torch.clamp(raw, 0, t - need), need, planar)
     return out, raw.to(torch.int32)
 
 
 @lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def sync_lib() -> ctypes.CDLL:
+    """The ``csrc/sync_align.cu`` library (kernels 1, 3 and 4), loaded once."""
     lib = _build.library("sync_align")
     lib.ofdm_sync_align_n_partial.restype = ctypes.c_int
     lib.ofdm_sync_align_n_partial.argtypes = [ctypes.c_int]
@@ -107,10 +133,19 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    lib.ofdm_planar_align.restype = ctypes.c_int
+    lib.ofdm_planar_align.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    lib.ofdm_sync_align_chunked.restype = ctypes.c_int
+    lib.ofdm_sync_align_chunked.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
     return lib
 
 
-def _template_on(tpl: np.ndarray, device: torch.device) -> torch.Tensor:
+def template_on(tpl: np.ndarray, device: torch.device) -> torch.Tensor:
     return device_table(np.frombuffer, (template_key(tpl), np.complex128),
                         torch.complex64, device)
 
@@ -133,22 +168,135 @@ def sync_align(flat: torch.Tensor, template, need: int,
         return sync_align_reference(flat, tpl, need, search_window, planar)
     if flat.device.type != "cuda":
         raise ValueError(f"sync_align runs on cpu or cuda, not {flat.device}")
-    lib = _lib()
+    lib = sync_lib()
     dev = flat.device
-    w = _template_on(tpl, dev)
+    w = template_on(tpl, dev)
     partial = torch.empty((r, lib.ofdm_sync_align_n_partial(lag_bound)),
                           dtype=torch.int64, device=dev)
     raw = torch.empty(r, dtype=torch.int32, device=dev)
     out = torch.empty((r, 2, need), dtype=torch.float32, device=dev) if planar \
         else torch.empty((r, need), dtype=torch.complex64, device=dev)
     err = lib.ofdm_sync_align(
-        flat.data_ptr(), *_window_strides(flat), r, t, w.data_ptr(), len(tpl),
+        flat.data_ptr(), *window_strides(flat), r, t, w.data_ptr(), len(tpl),
         int(_template_is_real(tpl)), lag_bound, need, t - need,
         partial.data_ptr(), raw.data_ptr(), out.data_ptr(),
-        *_window_strides(out), torch.cuda.current_stream(dev).cuda_stream)
+        *window_strides(out), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sync_align")
     sync_align.launches += 1
     return out, raw
 
 
 sync_align.launches = 0
+
+
+def _check_planar_align(flat: torch.Tensor, offsets: torch.Tensor,
+                        need: int):
+    """Validate the arguments of ``planar_align``; return (rows, T)."""
+    r, t = check_input(flat, "planar_align")
+    if offsets.shape != (r,) or offsets.dtype not in (torch.int32, torch.int64) \
+            or offsets.device != flat.device:
+        raise ValueError("offsets must be int32 or int64 [R] on the input's "
+                         "device")
+    if not 0 < need <= t:
+        raise ValueError(f"need={need} must lie in [1, T={t}]")
+    return r, t
+
+
+def planar_align_reference(flat: torch.Tensor, offsets: torch.Tensor,
+                           need: int, planar: bool = False) -> torch.Tensor:
+    """Plain version of ``planar_align``: a gather, after checking that
+    every offset lies in [0, T - need] (the kernel trusts them)."""
+    r, t = _check_planar_align(flat, offsets, need)
+    if r and not bool(((offsets >= 0) & (offsets <= t - need)).all()):
+        raise ValueError(f"offsets must lie in [0, T - need = {t - need}]")
+    return _gather_windows(flat, offsets, need, planar)
+
+
+def planar_align(flat: torch.Tensor, offsets: torch.Tensor, need: int,
+                 planar: bool = False) -> torch.Tensor:
+    """Per-row window copy (kernel 3): row r holds
+    ``flat[r, offsets[r] : offsets[r] + need]``.
+
+    flat: complex64 [R, T] or f32 planes [R, 2, T], contiguous.  offsets:
+    int [R], already clipped to [0, T - need] (``decode_frame`` clips; the
+    kernel reads them as they are).  Returns complex64 [R, need], or f32
+    [R, 2, need] with ``planar=True``.
+
+    A CPU tensor runs ``planar_align_reference``; a CUDA tensor launches the
+    kernel (counted in ``planar_align.launches``); any other device raises.
+    """
+    if flat.device.type == "cpu":
+        return planar_align_reference(flat, offsets, need, planar)
+    if flat.device.type != "cuda":
+        raise ValueError(f"planar_align runs on cpu or cuda, not {flat.device}")
+    r, _ = _check_planar_align(flat, offsets, need)
+    offs = offsets.to(torch.int32).contiguous()
+    out = torch.empty((r, 2, need), dtype=torch.float32, device=flat.device) \
+        if planar else torch.empty((r, need), dtype=torch.complex64,
+                                   device=flat.device)
+    lib = sync_lib()
+    err = lib.ofdm_planar_align(
+        flat.data_ptr(), *window_strides(flat), r, offs.data_ptr(), need,
+        out.data_ptr(), *window_strides(out),
+        torch.cuda.current_stream(flat.device).cuda_stream)
+    _build.check(lib, err, "planar_align")
+    planar_align.launches += 1
+    return out
+
+
+planar_align.launches = 0
+
+
+@lru_cache(maxsize=None)
+def _pin_lib() -> ctypes.CDLL:
+    lib = _build.library("pin_rowmajor")
+    lib.ofdm_pin_rowmajor.restype = ctypes.c_int
+    lib.ofdm_pin_rowmajor.argtypes = (
+        [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    return lib
+
+
+def pin_rowmajor_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``pin_rowmajor``: ``x.contiguous()``, always a new
+    tensor (cloned when ``x`` is already row-major)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def pin_rowmajor(x: torch.Tensor) -> torch.Tensor:
+    """A row-major copy of a 2-D to 4-D tensor of any strides (kernel 5).
+
+    The GPU form of the TPU's layout pin: a strided planar view, such as
+    ``torch.view_as_real(rx).transpose(1, 2)``, made into the contiguous
+    [R, 2, T] planes the decode kernels read.  Elements of 1, 2, 4 or 8
+    bytes.  Always returns a new tensor.
+
+    A CPU tensor runs ``pin_rowmajor_reference``; a CUDA tensor launches the
+    kernel (counted in ``pin_rowmajor.launches``); any other device raises.
+    """
+    if not 2 <= x.dim() <= 4:
+        raise ValueError(f"pin_rowmajor takes 2-D to 4-D tensors, got {x.dim()}-D")
+    if x.device.type == "cpu":
+        return pin_rowmajor_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"pin_rowmajor runs on cpu or cuda, not {x.device}")
+    size = x.element_size()
+    if size not in (1, 2, 4, 8) or x.data_ptr() % size:
+        raise ValueError(f"pin_rowmajor copies aligned 1, 2, 4 or 8-byte "
+                         f"elements, not {x.dtype}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    lead = 4 - x.dim()
+    sizes = (ctypes.c_longlong * 4)(*([1] * lead + list(x.shape)))
+    strides = (ctypes.c_longlong * 4)(*([0] * lead + list(x.stride())))
+    lib = _pin_lib()
+    err = lib.ofdm_pin_rowmajor(x.data_ptr(), sizes, strides, size,
+                                 out.data_ptr(),
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "pin_rowmajor")
+    pin_rowmajor.launches += 1
+    return out
+
+
+pin_rowmajor.launches = 0

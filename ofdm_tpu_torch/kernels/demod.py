@@ -3,7 +3,9 @@
 Kernel 2 of the port (``csrc/eq_demod_pack.cu``), replacing the TPU kernel
 ``ofdm_tpu/kernels/demod_pallas.py::eq_demod_pack`` and extended with the
 per-chunk CFO phase of the matrix-derot decode (``rot_dc``,
-ofdm_tpu/phy/rx.py:188-192), which the TPU kernel could not take.  Per OFDM
+ofdm_tpu/phy/rx.py:188-192), which the TPU kernel could not take, and with
+an optional block table that reads each output block from another input
+block (the chunked route's slot order, rx.py:742-828).  Per OFDM
 block: rotate by the chunk's CFO phase, equalize by the channel estimate,
 remove the mean pilot phase, take hard decisions and pack the bits LSB-first
 into bytes.  Without it, eager torch would spend a separate pass over the
@@ -22,7 +24,7 @@ from ..phy.modulation import BITS_PER_SYMBOL, Modulation, demodulate_symbols_pac
 from . import _build
 
 
-def _check(yr, yi, h, f_delta, n_data, n_pilots, modulation):
+def _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks):
     if yr.dtype != torch.float32 or yi.dtype != torch.float32 or yr.dim() != 3:
         raise ValueError("yr and yi must be float32 [B, NB, nbins]")
     if yr.shape != yi.shape or yr.stride() != yi.stride() or yr.device != yi.device:
@@ -45,16 +47,26 @@ def _check(yr, yi, h, f_delta, n_data, n_pilots, modulation):
                          f"in nbins={nbins}")
     if n_data * BITS_PER_SYMBOL[modulation] % 8:
         raise ValueError("eq_demod_pack needs whole bytes per block")
+    if blocks is not None and (blocks.dtype != torch.int32 or blocks.dim() != 1
+                               or not blocks.is_contiguous()
+                               or blocks.device != yr.device):
+        raise ValueError("blocks must be a contiguous int32 [NB] tensor on "
+                         "the planes' device")
 
 
 def eq_demod_pack_reference(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
                             f_delta: torch.Tensor, *, n_data: int,
                             n_pilots: int, modulation: Modulation,
-                            cfg: FrameConfig) -> torch.Tensor:
+                            cfg: FrameConfig,
+                            blocks: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of ``eq_demod_pack``: the elementwise tail of the
     matrix-derot decode as the JAX package writes it (rot_dc multiply,
-    y / h, mean pilot angle, ``demodulate_symbols_packed``)."""
-    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation)
+    y / h, mean pilot angle, ``demodulate_symbols_packed``), after an
+    ``index_select`` of the blocks when a table is given."""
+    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks)
+    if blocks is not None:
+        yr = yr.index_select(1, blocks.long())
+        yi = yi.index_select(1, blocks.long())
     nb = yr.shape[1]
     chunk = torch.arange(nb, dtype=torch.float32, device=yr.device) \
         + cfg.n_sync_chunks
@@ -74,13 +86,14 @@ def _lib() -> ctypes.CDLL:
     lib.ofdm_eq_demod_pack.restype = ctypes.c_int
     lib.ofdm_eq_demod_pack.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
     return lib
 
 
 def eq_demod_pack(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
                   f_delta: torch.Tensor, *, n_data: int, n_pilots: int,
-                  modulation: Modulation, cfg: FrameConfig) -> torch.Tensor:
+                  modulation: Modulation, cfg: FrameConfig,
+                  blocks: torch.Tensor | None = None) -> torch.Tensor:
     """CFO phase + equalize + pilot phase + demod + pack, one pass.
 
     yr, yi: f32 [B, NB, nbins] DFT output at the selected bins (data bins,
@@ -88,19 +101,25 @@ def eq_demod_pack(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
     of one [B, NB, 2*nbins] product qualify).  h: complex64 [B, nbins], the
     channel estimate at the same bins.  f_delta: f32 [B], the CFO estimate;
     data block c is rotated by exp(-j f_delta (c + n_sync_chunks) sym_len).
-    Returns uint8 [B, NB * n_data * bps / 8].
+    blocks: None, or int32 [NB_out]: output block c reads input block
+    ``blocks[c]`` (the kernel trusts the table to index inside the planes;
+    the plain version's ``index_select`` checks it).  Returns uint8
+    [B, NB_out * n_data * bps / 8], NB_out = NB without a table.
 
     A CPU tensor runs ``eq_demod_pack_reference``; a CUDA tensor launches the
     kernel (counted in ``eq_demod_pack.launches``); any other device raises.
     """
-    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation)
+    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks)
     if yr.device.type == "cpu":
         return eq_demod_pack_reference(yr, yi, h, f_delta, n_data=n_data,
                                        n_pilots=n_pilots,
-                                       modulation=modulation, cfg=cfg)
+                                       modulation=modulation, cfg=cfg,
+                                       blocks=blocks)
     if yr.device.type != "cuda":
         raise ValueError(f"eq_demod_pack runs on cpu or cuda, not {yr.device}")
     b, nb, nbins = yr.shape
+    if blocks is not None:
+        nb = blocks.shape[0]
     bps = BITS_PER_SYMBOL[modulation]
     out = torch.empty((b, nb * n_data * bps // 8), dtype=torch.uint8,
                       device=yr.device)
@@ -108,7 +127,8 @@ def eq_demod_pack(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
     err = lib.ofdm_eq_demod_pack(
         yr.data_ptr(), yi.data_ptr(), yr.stride(0), yr.stride(1), b, nb, nbins,
         n_data, n_pilots, bps, h.data_ptr(), f_delta.data_ptr(),
-        cfg.n_sync_chunks, cfg.sym_len, out.data_ptr(),
+        cfg.n_sync_chunks, cfg.sym_len,
+        None if blocks is None else blocks.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(yr.device).cuda_stream)
     _build.check(lib, err, "eq_demod_pack")
     eq_demod_pack.launches += 1

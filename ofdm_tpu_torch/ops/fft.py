@@ -85,6 +85,35 @@ def dft_matmul(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def _packed_dft_select_matrix(n: int, bins: tuple) -> np.ndarray:
+    w = _dft_matrix(n, inverse=False)[:, list(bins)]
+    return np.block([[w.real, w.imag], [-w.imag, w.real]])
+
+
+def dft_matmul_select_planar(x: torch.Tensor, bins: tuple):
+    """Forward DFT over the last axis at ``bins`` only, as planes (yr, yi).
+
+    x: complex[..., n].  One packed [.., 2n] x [2n, 2k] product; yr and yi
+    are its two halves, views of one contiguous [..., 2k] tensor (the layout
+    ``eq_demod_pack`` reads).  Each output is the same dot product as
+    ofdm_tpu's ``dft_matmul_select_planar``.
+    """
+    n = x.shape[-1]
+    k = len(bins)
+    w = device_table(_packed_dft_select_matrix, (n, tuple(bins)),
+                     real_dtype(x.dtype), x.device)
+    out = torch.cat([x.real, x.imag], dim=-1) @ w
+    return out[..., :k], out[..., k:]
+
+
+def dft_matmul_select(x: torch.Tensor, bins: tuple) -> torch.Tensor:
+    """Forward DFT over the last axis at ``bins`` only (complex output, in
+    the order of ``bins``)."""
+    yr, yi = dft_matmul_select_planar(x, bins)
+    return torch.complex(yr, yi)
+
+
+@lru_cache(maxsize=None)
 def _dft_select_planes(n: int, bins: tuple, dtype_name: str):
     w = _dft_matrix(n, inverse=False)[:, list(bins)]
     return (np.ascontiguousarray(w.real).astype(dtype_name),

@@ -1,11 +1,22 @@
 """Frame synchronization by sliding correlation (port of ofdm_tpu/ops/xcorr.py).
 
-The locking template is at most 128 taps, so the correlation
-c[lag] = sum_j s[lag + j] conj(tpl[j]) is computed for every lag at once as
-one matmul: stride-128 frames of 256 samples against a banded Toeplitz of
-the template.  A peak at lag k gives the reference's offset k - 1
-(src/receiver.rs:20-25).  This module is the plain version behind the
-``sync_align`` kernel (kernels/align.py).
+c[lag] = sum_j s[lag + j] conj(tpl[j]); a peak at lag k gives the
+reference's offset k - 1 (src/receiver.rs:20-25).  Three forms, as in the
+JAX package:
+
+- ``sliding_correlation_matmul``: templates of at most 128 taps, every lag at
+  once as one matmul of stride-128 frames of 256 samples against a banded
+  Toeplitz of the template.  The plain version behind the ``sync_align``
+  kernel (kernels/align.py) and the default sync.
+- ``sliding_correlation``: ``conv1d`` for any template length (lags from
+  -(K-1)), the route of templates over 128 taps.
+- ``sliding_correlation_fft``: overlap-save with ``torch.fft``.
+
+``compute_dtype=torch.bfloat16`` rounds the operands to bf16 and multiplies
+them in f32, as JAX's bf16 sync accumulates in f32
+(``preferred_element_type``): a bf16 x bf16 product is exact in f32, so
+only the order of the sums differs from JAX.  On CUDA that needs TF32 off,
+which ``ops.fft.require_full_fp32`` enforces before any decode.
 """
 
 from __future__ import annotations
@@ -56,14 +67,44 @@ def _toeplitz_template_real(key: bytes, dtype_name: str) -> np.ndarray:
     return tr.astype(dtype_name)
 
 
-def sliding_correlation_matmul(samples: torch.Tensor, template) -> torch.Tensor:
+SYNC_DTYPES = (None, torch.bfloat16, "fft", "conv")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and widen back: the operand JAX's bf16
+    sync feeds its f32-accumulating product."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _operand_rounding(compute_dtype):
+    """What the matmul and conv forms apply to their operands: nothing for
+    None, ``_bf16`` for torch.bfloat16."""
+    if compute_dtype is None:
+        return lambda x: x
+    if compute_dtype is torch.bfloat16:
+        return _bf16
+    raise ValueError(f"the matmul and conv correlations compute in None or "
+                     f"torch.bfloat16, not {compute_dtype!r}")
+
+
+def check_sync_dtype(compute_dtype) -> None:
+    """Raise ValueError unless ``compute_dtype`` is one of SYNC_DTYPES."""
+    if not any(compute_dtype is d or compute_dtype == d for d in SYNC_DTYPES):
+        raise ValueError(f"unknown sync compute dtype {compute_dtype!r}; "
+                         f"expected one of {SYNC_DTYPES}")
+
+
+def sliding_correlation_matmul(samples: torch.Tensor, template,
+                               compute_dtype=None) -> torch.Tensor:
     """c[lag] = sum_j samples[lag+j] * conj(template[j]) for lag in [0, T-1]
-    (samples past T read as zero).  samples: complex[B, T] or [T]."""
+    (samples past T read as zero).  samples: complex[B, T] or [T].
+    ``compute_dtype``: None (full precision) or torch.bfloat16."""
     squeeze = samples.dim() == 1
     if squeeze:
         samples = samples[None, :]
     b, t = samples.shape
     tpl = np.asarray(template)
+    rnd = _operand_rounding(compute_dtype)
     if tpl.shape[-1] > MAX_TAPS:
         raise NotImplementedError(
             f"matmul correlation supports templates up to {MAX_TAPS} taps")
@@ -74,12 +115,12 @@ def sliding_correlation_matmul(samples: torch.Tensor, template) -> torch.Tensor:
     n_frames = -(-t // 128)
     pad = n_frames * 128 + 256 - t
     x = torch.view_as_real(samples)                          # [b, t, 2]
-    x = torch.cat([x, x.new_zeros((b, pad, 2))], dim=1)
+    x = rnd(torch.cat([x, x.new_zeros((b, pad, 2))], dim=1))
     blocks_re = x[..., 0].reshape(b, -1, 128)
     blocks_im = x[..., 1].reshape(b, -1, 128)
     if _template_is_real(tpl):
-        w = device_table(_toeplitz_template_real, (key, name), rd,
-                         samples.device)
+        w = rnd(device_table(_toeplitz_template_real, (key, name), rd,
+                             samples.device))
         frames = torch.cat([
             torch.stack([blocks_re[:, :-1], blocks_im[:, :-1]], dim=1),
             torch.stack([blocks_re[:, 1:], blocks_im[:, 1:]], dim=1),
@@ -88,7 +129,7 @@ def sliding_correlation_matmul(samples: torch.Tensor, template) -> torch.Tensor:
         c = torch.complex(out[:, 0].reshape(b, -1)[:, :t],
                           out[:, 1].reshape(b, -1)[:, :t])
         return c[0] if squeeze else c
-    w = device_table(_toeplitz_template, (key, name), rd, samples.device)
+    w = rnd(device_table(_toeplitz_template, (key, name), rd, samples.device))
     frames = torch.cat([blocks_re[:, :-1], blocks_re[:, 1:],
                         blocks_im[:, :-1], blocks_im[:, 1:]],
                        dim=-1)[:, :n_frames]
@@ -98,10 +139,102 @@ def sliding_correlation_matmul(samples: torch.Tensor, template) -> torch.Tensor:
     return c[0] if squeeze else c
 
 
-def locking_sync_offset(samples: torch.Tensor, template) -> torch.Tensor:
+@lru_cache(maxsize=None)
+def _conv_weights(key: bytes, dtype_name: str) -> np.ndarray:
+    """conv1d weights of the conjugated template: [2, 1, K] for the grouped
+    real form (re and im each against tr), else [2, 2, K] for
+    re = sr*tr + si*ti, im = si*tr - sr*ti."""
+    t = np.frombuffer(key, dtype=np.complex128)
+    tr, ti = t.real, t.imag
+    if not np.any(ti):
+        return np.stack([tr, tr])[:, None].astype(dtype_name)
+    return np.stack([np.stack([tr, ti]), np.stack([-ti, tr])]).astype(dtype_name)
+
+
+def sliding_correlation(samples: torch.Tensor, template,
+                        compute_dtype=None) -> torch.Tensor:
+    """c[i] = sum_n samples[i - K + 1 + n] * conj(template[n]) for lags
+    i - (K-1) in [-(K-1), T-1]: output index i is lag i - (K-1).
+
+    One ``conv1d`` with padding K-1 on both sides (torch's conv, like XLA's,
+    cross-correlates: the kernel is not reversed).  A real template takes the
+    grouped form, re and im each against tr alone (half the MACs).
+    samples: complex[B, T] or [T], any template length.
+    """
+    squeeze = samples.dim() == 1
+    if squeeze:
+        samples = samples[None, :]
+    rnd = _operand_rounding(compute_dtype)
+    tpl = np.asarray(template)
+    k = tpl.shape[-1]
+    rd = torch.float64 if samples.dtype == torch.complex128 else torch.float32
+    name = "float64" if rd == torch.float64 else "float32"
+    w = device_table(_conv_weights, (template_key(tpl), name), rd,
+                     samples.device)
+    lhs = rnd(torch.stack([samples.real.to(rd), samples.imag.to(rd)], dim=1))
+    out = torch.nn.functional.conv1d(lhs, rnd(w), padding=k - 1,
+                                     groups=2 if w.shape[1] == 1 else 1)
+    c = torch.complex(out[:, 0], out[:, 1])
+    return c[0] if squeeze else c
+
+
+@lru_cache(maxsize=None)
+def _padded_template(key: bytes, fft_len: int) -> np.ndarray:
+    t = np.frombuffer(key, dtype=np.complex128)
+    return np.concatenate([t, np.zeros(fft_len - t.shape[0])])
+
+
+def sliding_correlation_fft(samples: torch.Tensor, template,
+                            fft_len: int = 4096) -> torch.Tensor:
+    """Overlap-save sliding correlation: ``sliding_correlation``'s lags >= 0
+    (index i = lag i) from batched segment FFTs of ``fft_len`` points.
+    samples: complex[B, T] or [T] -> complex[B, T] (windows past the end
+    read zeros)."""
+    squeeze = samples.dim() == 1
+    if squeeze:
+        samples = samples[None, :]
+    b, t = samples.shape
+    tpl = np.asarray(template)
+    k = tpl.shape[-1]
+    step = fft_len - k + 1
+    n_seg = -(-t // step)
+    pad_to = n_seg * step + k - 1
+    x = torch.cat([samples, samples.new_zeros((b, pad_to - t))], dim=-1)
+    idx = (torch.arange(n_seg, device=x.device) * step)[:, None] \
+        + torch.arange(fft_len, device=x.device)[None, :]
+    segs = x[:, idx]                                    # [B, n_seg, fft_len]
+    tpl_pad = device_table(_padded_template, (template_key(tpl), fft_len),
+                           samples.dtype, x.device)
+    c = torch.fft.ifft(torch.fft.fft(segs, dim=-1) * torch.fft.fft(tpl_pad).conj(),
+                       dim=-1)
+    c = c[:, :, :step].reshape(b, n_seg * step)[:, :t]
+    return c[0] if squeeze else c
+
+
+def locking_sync_offset(samples: torch.Tensor, template,
+                        compute_dtype=None) -> torch.Tensor:
     """Frame-sync offset with reference semantics: the first-occurrence
-    argmax of the correlation power over lags >= 0, minus 1.  Batched over
-    leading axes; int64."""
-    c = sliding_correlation_matmul(samples, template)
+    argmax of the correlation power, minus 1.  Batched over leading axes;
+    int64.
+
+    ``compute_dtype`` picks the correlation as ofdm_tpu/ops/xcorr.py does:
+    None the matmul form (the conv form over 128 taps), torch.bfloat16 the
+    matmul form on bf16 operands (the conv form over 128 taps), "fft"
+    overlap-save, "conv" the conv form in full precision.  The conv form
+    starts at lag -(K-1), so its offset is argmax - (K-1) - 1.
+    """
+    check_sync_dtype(compute_dtype)
+    k = np.shape(template)[-1]
+    if compute_dtype == "fft":
+        c = sliding_correlation_fft(samples, template)
+    elif compute_dtype == "conv" or k > MAX_TAPS:
+        c = sliding_correlation(samples, template,
+                                compute_dtype=None if compute_dtype == "conv"
+                                else compute_dtype)
+        power = c.real ** 2 + c.imag ** 2
+        return torch.argmax(power, dim=-1) - (k - 1) - 1
+    else:
+        c = sliding_correlation_matmul(samples, template,
+                                       compute_dtype=compute_dtype)
     power = c.real ** 2 + c.imag ** 2
     return torch.argmax(power, dim=-1) - 1

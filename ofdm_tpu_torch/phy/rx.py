@@ -2,49 +2,76 @@
 
 The batched path, ``decode_frame``, runs three stages on the input's device:
 
-  1. sync + align: the ``sync_align`` kernel correlates every row with the
-     locking template, takes the reference's argmax - 1 offset
-     (src/receiver.rs:20-25) and writes the aligned window as f32 planes;
+  1. sync + align, by one of three routes (``align_impl``):
+     - fused (the default): the ``sync_align`` kernel correlates every row
+       with the locking template, takes the reference's argmax - 1 offset
+       (src/receiver.rs:20-25) and writes the aligned window as f32 planes;
+     - unfused: ``sync_offset`` in plain torch (matmul, bf16, overlap-save
+       FFT or conv correlation: ``sync_dtype``, and every template over 128
+       taps), then the ``planar_align`` kernel copies the windows;
+     - chunked: the ``sync_align_chunked`` kernel writes the window as
+       slot-major chunk planes, decoded in slot order.
   2. the CFO estimate from the last two preamble chunks, the channel
-     estimate from the training chunks, and the data DFT at the used bins
-     with the within-symbol CFO phasor folded into a per-row DFT matrix
-     ("matrix derot", a dense fp32 ``torch.bmm``);
-  3. the tail: the ``eq_demod_pack`` kernel applies the per-chunk CFO phase,
-     equalizes, removes the pilot phase, demodulates and packs the bytes.
+     estimate from the training chunks, and the data DFT at the used bins.
+     "matrix" derot (the default) folds the within-symbol CFO phasor into a
+     per-row DFT matrix (a dense fp32 ``torch.bmm``); "stream" derot
+     rotates the aligned stream itself, as ``decode`` does.
+  3. the tail: the ``eq_demod_pack`` kernel applies the per-chunk CFO phase
+     (zero after stream derot), equalizes, removes the pilot phase,
+     demodulates and packs the bytes.
 
-On a CPU tensor both kernels run their plain PyTorch versions.  Matrix
-derot is the only derotation here (the JAX package also has a stream
-derotation, and TPU lowering selectors that are not ported).
+A non-contiguous input is made row-major by the ``pin_rowmajor`` kernel
+first.  On a CPU tensor every kernel runs its plain PyTorch version.  The
+JAX package's TPU lowering selectors ``demod_impl`` and ``dft_precision``
+are not ported: the tail is always ``eq_demod_pack`` and every DFT is full
+fp32 (ofdm_tpu_torch/PARITY.md).
 
 ``decode`` is the reference-parity entry for one stream: host-driven
-length, the reference CFO estimator, header parsing and truncation.
+length, the reference CFO estimator, stream derot, header parsing and
+truncation.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import constants
 from ..config import DEFAULT_CONFIG, FrameConfig
-from ..kernels.align import sync_align
+from ..kernels.align import pin_rowmajor, planar_align, sync_align
+from ..kernels.chain import sync_align_chunked
 from ..kernels.demod import eq_demod_pack
 from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_derot_planar,
-                       require_full_fp32)
-from ..ops.xcorr import locking_sync_offset
+                       dft_matmul_select_planar, require_full_fp32)
+from ..ops.xcorr import MAX_TAPS, check_sync_dtype, locking_sync_offset
 from ..packets.header import HEADER_LEN, Header
 from .modulation import Modulation, _pad_last
+
+ALIGN_IMPLS = ("auto", "fused", "fused_planar", "chunked", "xla", "pallas")
+DEROT_IMPLS = ("auto", "matrix", "stream")
+
+
+@lru_cache(maxsize=None)
+def locking_template(cfg: FrameConfig) -> np.ndarray:
+    """``constants.locking_for(cfg)``, built once per geometry (a seeded
+    template comes from the pure-Python reference RNG, ~3 ms a build)."""
+    return constants.locking_for(cfg)
 
 
 class DecodeError(ValueError):
     """Raised when the stream cannot be decoded (reference: anyhow errors)."""
 
 
-def sync_offset(samples: torch.Tensor,
-                cfg: FrameConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """Reference frame-sync offset, argmax - 1 (complex [B, T] or [T])."""
+def sync_offset(samples: torch.Tensor, cfg: FrameConfig = DEFAULT_CONFIG,
+                compute_dtype=None) -> torch.Tensor:
+    """Reference frame-sync offset, argmax - 1 (complex [B, T] or [T]).
+    ``compute_dtype``: None, torch.bfloat16, "fft" or "conv"
+    (``ops.xcorr.locking_sync_offset``)."""
     dtype = np.complex64 if samples.dtype == torch.complex64 else np.complex128
-    return locking_sync_offset(samples, constants.locking_for(cfg).astype(dtype))
+    return locking_sync_offset(samples, locking_template(cfg).astype(dtype),
+                               compute_dtype=compute_dtype)
 
 
 def _cfo_estimate_lr(left: torch.Tensor, right: torch.Tensor,
@@ -79,78 +106,306 @@ def _selected_bins(guard_bands: bool, cfg: FrameConfig):
     return tuple(range(cfg.n_fft)), cfg.n_fft, 0
 
 
-def _tail_inputs(cp_re: torch.Tensor, cp_im: torch.Tensor, *,
-                 guard_bands: bool, cfg: FrameConfig, cfo_estimator: str):
+def _channel_estimate(tr_raw: torch.Tensor, f_delta: torch.Tensor,
+                      cfg: FrameConfig) -> torch.Tensor:
+    """h_k [R, n_fft] from the raw training chunks [R, n_training, n_fft]
+    (CP stripped), derotated here (a small tensor)."""
+    t0 = cfg.n_locking + cfg.n_preamble
+    rd, dev = f_delta.dtype, f_delta.device
+    tr_idx = ((torch.arange(cfg.n_training, dtype=rd, device=dev) + t0)
+              * cfg.sym_len)[:, None] \
+        + (torch.arange(cfg.n_fft, dtype=rd, device=dev) + cfg.cp_len)[None, :]
+    tr = tr_raw * _phasor(f_delta[:, None, None] * tr_idx)
+    training_ref = device_table(constants.training_signals,
+                                (cfg.n_fft, cfg.training_seed), tr.dtype, dev)
+    return (dft_matmul(tr) / training_ref).mean(-2)
+
+
+def _matrix_front(cp_re: torch.Tensor, cp_im: torch.Tensor, *,
+                  guard_bands: bool, cfg: FrameConfig, cfo_estimator: str):
     """Matrix-derot front half on aligned planes [R, n_chunks, sym_len].
 
-    Returns (yr, yi, h_sel, f_delta): the DFT planes [R, NB, nbins] at the
-    selected bins (CFO-derotated within each symbol), the channel estimate
-    at those bins, and the CFO estimate; exactly what ``eq_demod_pack`` takes.
+    Returns (yr, yi, h_k, f_delta): the DFT planes [R, NB, nbins] at the
+    selected bins (CFO-derotated within each symbol, the per-chunk phase
+    left to the tail), the channel estimate and the CFO estimate.
     """
-    sym = cfg.sym_len
-    rd = cp_re.dtype
     last = cfg.n_locking + cfg.n_preamble - 1
     f_delta = _cfo_estimate_lr(
         torch.complex(cp_re[:, last - 1], cp_im[:, last - 1]),
         torch.complex(cp_re[:, last], cp_im[:, last]), cfg, cfo_estimator)
-
-    # channel estimate: derotate just the training chunks (a small tensor)
     t0 = cfg.n_locking + cfg.n_preamble
-    tr_raw = torch.complex(cp_re[:, t0:t0 + cfg.n_training, cfg.cp_len:],
-                           cp_im[:, t0:t0 + cfg.n_training, cfg.cp_len:])
-    dev = cp_re.device
-    tr_idx = ((torch.arange(cfg.n_training, dtype=rd, device=dev) + t0)
-              * sym)[:, None] \
-        + (torch.arange(cfg.n_fft, dtype=rd, device=dev) + cfg.cp_len)[None, :]
-    tr = tr_raw * _phasor(f_delta[:, None, None] * tr_idx)
-    training_ref = device_table(constants.training_signals,
-                                (cfg.n_fft, cfg.training_seed), tr.dtype,
-                                tr.device)
-    h_k = (dft_matmul(tr) / training_ref).mean(-2)
-
+    h_k = _channel_estimate(
+        torch.complex(cp_re[:, t0:t0 + cfg.n_training, cfg.cp_len:],
+                      cp_im[:, t0:t0 + cfg.n_training, cfg.cp_len:]),
+        f_delta, cfg)
     sel, _, _ = _selected_bins(guard_bands, cfg)
     yr, yi = dft_matmul_select_derot_planar(
         cp_re[:, cfg.n_sync_chunks:, cfg.cp_len:],
         cp_im[:, cfg.n_sync_chunks:, cfg.cp_len:],
         sel, f_delta, sample_offset=cfg.cp_len)
-    h_sel = h_k[:, device_table(np.asarray, (sel,), torch.long, dev)]
-    return yr, yi, h_sel, f_delta.contiguous()
+    return yr, yi, h_k, f_delta
 
 
-def _decode_planes(planes: torch.Tensor, *, n_chunks: int, guard_bands: bool,
-                   modulation: Modulation, cfg: FrameConfig,
-                   cfo_estimator: str) -> torch.Tensor:
-    """Decode aligned f32 planes [R, 2, n_chunks * sym_len] -> uint8 [R, n]."""
-    cp = planes.reshape(planes.shape[0], 2, n_chunks, cfg.sym_len)
-    yr, yi, h_sel, f_delta = _tail_inputs(
-        cp[:, 0], cp[:, 1], guard_bands=guard_bands, cfg=cfg,
-        cfo_estimator=cfo_estimator)
-    _, nd, n_pilots = _selected_bins(guard_bands, cfg)
-    return eq_demod_pack(yr, yi, h_sel, f_delta, n_data=nd, n_pilots=n_pilots,
-                         modulation=modulation, cfg=cfg)
+def _stream_front(chunks: torch.Tensor, *, guard_bands: bool,
+                  cfg: FrameConfig, cfo_estimator: str):
+    """Stream-derot front half on aligned complex chunks [R, n_chunks, sym]
+    (ofdm_tpu/phy/rx.py:299-345): the whole stream is rotated by the
+    outer-product phasor exp(-j f (sym c + j)), then the channel estimate
+    and the DFT at the selected bins read the rotated chunks.
+
+    Returns (yr, yi, h_k, f_delta, rotated chunks)."""
+    last = cfg.n_locking + cfg.n_preamble - 1
+    f_delta = _cfo_estimate_lr(chunks[:, last - 1], chunks[:, last], cfg,
+                               cfo_estimator)
+    rd, dev = f_delta.dtype, f_delta.device
+    rot_c = _phasor(f_delta[:, None]
+                    * (torch.arange(chunks.shape[1], dtype=rd, device=dev)
+                       * cfg.sym_len))
+    rot_j = _phasor(f_delta[:, None]
+                    * torch.arange(cfg.sym_len, dtype=rd, device=dev))
+    rotated = chunks * (rot_c[:, :, None] * rot_j[:, None, :])
+    t0 = cfg.n_locking + cfg.n_preamble
+    training_ref = device_table(constants.training_signals,
+                                (cfg.n_fft, cfg.training_seed), chunks.dtype,
+                                dev)
+    h_k = (dft_matmul(rotated[:, t0:t0 + cfg.n_training, cfg.cp_len:])
+           / training_ref).mean(-2)
+    sel, _, _ = _selected_bins(guard_bands, cfg)
+    yr, yi = dft_matmul_select_planar(
+        rotated[:, cfg.n_sync_chunks:, cfg.cp_len:], sel)
+    return yr, yi, h_k, f_delta, rotated
 
 
-def _decode_batch(flat: torch.Tensor, n_blocks: int, guard_bands: bool,
-                  modulation: Modulation, cfg: FrameConfig,
-                  search_window: int | None, cfo_estimator: str):
-    """sync_align + decode of complex64 [R, T] or f32 [R, 2, T] rows."""
+def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
+          phase: torch.Tensor, *, guard_bands: bool, modulation: Modulation,
+          cfg: FrameConfig, blocks: torch.Tensor | None = None) -> torch.Tensor:
+    """``eq_demod_pack`` on the DFT planes, with h_k at the selected bins and
+    ``phase`` the per-chunk CFO rate (f_delta, or zeros after stream derot)."""
+    sel, nd, n_pilots = _selected_bins(guard_bands, cfg)
+    h_sel = h_k[:, device_table(np.asarray, (sel,), torch.long, h_k.device)]
+    return eq_demod_pack(yr, yi, h_sel, phase.contiguous(), n_data=nd,
+                         n_pilots=n_pilots, modulation=modulation, cfg=cfg,
+                         blocks=blocks)
+
+
+def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
+                   guard_bands: bool, modulation: Modulation, cfg: FrameConfig,
+                   cfo_estimator: str, diag: bool = False):
+    """Decode aligned f32 planes [R, 2, n_chunks * sym_len] -> (uint8
+    [R, n], diag or None).  ``derot``: "matrix" or "stream"."""
+    sym = cfg.sym_len
+    cp = planes.reshape(planes.shape[0], 2, n_chunks, sym)
+    kw = dict(guard_bands=guard_bands, cfg=cfg, cfo_estimator=cfo_estimator)
+    if derot == "matrix":
+        yr, yi, h_k, f_delta = _matrix_front(cp[:, 0], cp[:, 1], **kw)
+        phase = f_delta
+    else:
+        chunks = torch.complex(cp[:, 0], cp[:, 1])
+        yr, yi, h_k, f_delta, rotated = _stream_front(chunks, **kw)
+        phase = torch.zeros_like(f_delta)
+    out = _tail(yr, yi, h_k, phase, guard_bands=guard_bands,
+                modulation=modulation, cfg=cfg)
+    if not diag:
+        return out, None
+    # the reference's debug taps (src/receiver.rs:41,52,58); the kernel tail
+    # keeps no equalized symbols, as on JAX's kernel tail (rx.py:361-363)
+    if derot == "matrix":
+        pre = torch.complex(cp[:, 0, 6], cp[:, 1, 6])
+        idx = torch.arange(sym, dtype=f_delta.dtype, device=f_delta.device) \
+            + 6 * sym
+        post = pre * _phasor(f_delta[:, None] * idx)
+    else:
+        pre, post = chunks[:, 6], rotated[:, 6]
+    return out, {"f_delta": f_delta, "h_k": h_k, "equalized": None,
+                 "chunk6_pre": pre, "chunk6_post": post}
+
+
+def _unflatten_diag(d: dict, lead: tuple) -> dict:
+    return {k: None if v is None else v.reshape(*lead, *v.shape[1:])
+            for k, v in d.items()}
+
+
+def decode_planar_matrix(planes: torch.Tensor, *, n_chunks: int,
+                         guard_bands: bool = False,
+                         modulation: Modulation = Modulation.BPSK,
+                         cfg: FrameConfig = DEFAULT_CONFIG,
+                         cfo_estimator: str = "reference"):
+    """Matrix-derot decode of a planar aligned stream: f32 [..., 2, n] with
+    n >= n_chunks * sym_len (what ``sync_align(..., planar=True)`` returns),
+    batched over leading axes.  Returns (uint8 [..., n_bytes], diag) with
+    diag ``f_delta``, ``h_k``, ``chunk6_pre``, ``chunk6_post`` and
+    ``equalized`` None (the tail is the ``eq_demod_pack`` kernel)."""
+    require_full_fp32(planes.device)
+    lead = planes.shape[:-2]
+    flat = planes[..., :n_chunks * cfg.sym_len].to(torch.float32).reshape(
+        -1, 2, n_chunks * cfg.sym_len)
+    out, d = _decode_planes(flat, n_chunks=n_chunks, derot="matrix",
+                            guard_bands=guard_bands, modulation=modulation,
+                            cfg=cfg, cfo_estimator=cfo_estimator, diag=True)
+    return out.reshape(*lead, out.shape[-1]), _unflatten_diag(d, lead)
+
+
+def decode_aligned(aligned: torch.Tensor, *, n_chunks: int,
+                   guard_bands: bool = False,
+                   modulation: Modulation = Modulation.BPSK,
+                   cfg: FrameConfig = DEFAULT_CONFIG,
+                   cfo_estimator: str = "reference",
+                   derot_impl: str = "stream"):
+    """Decode a sync-aligned complex stream [..., n], n >= n_chunks * sym_len,
+    that starts at the locking block.  Returns (uint8 [..., n_bytes], diag):
+    diag holds ``f_delta``, ``h_k``, ``chunk6_pre``, ``chunk6_post`` and
+    ``equalized`` None (the tail is the ``eq_demod_pack`` kernel, as on the
+    JAX package's kernel tail).
+
+    ``derot_impl``: "stream" (default, the reference's derotation of the
+    whole stream), "matrix" (the phasor folded into a per-row DFT matrix)
+    or "auto" (= "matrix").  complex128 input is decoded in complex64.
+    """
+    derot = _resolve_derot(derot_impl)
+    require_full_fp32(aligned.device)
+    lead = aligned.shape[:-1]
+    flat = aligned[..., :n_chunks * cfg.sym_len].to(torch.complex64).reshape(
+        -1, n_chunks * cfg.sym_len)
+    planes = torch.stack([flat.real, flat.imag], dim=1)
+    out, d = _decode_planes(planes, n_chunks=n_chunks, derot=derot,
+                            guard_bands=guard_bands, modulation=modulation,
+                            cfg=cfg, cfo_estimator=cfo_estimator, diag=True)
+    return out.reshape(*lead, out.shape[-1]), _unflatten_diag(d, lead)
+
+
+def _slot_table(n_cls: int, m_per: int, first: int, n_chunks: int) -> np.ndarray:
+    """The slot of each chunk in [first, n_chunks) (chunked layout)."""
+    c = np.arange(first, n_chunks)
+    return (c % n_cls) * m_per + c // n_cls
+
+
+def decode_chunked_matrix(chun, *, n_chunks: int, m_per: int,
+                          guard_bands: bool = False,
+                          modulation: Modulation = Modulation.BPSK,
+                          cfg: FrameConfig = DEFAULT_CONFIG,
+                          cfo_estimator: str = "coherent") -> torch.Tensor:
+    """Matrix-derot decode of slot-major chunk planes.
+
+    ``chun``: (re, im) f32 [..., slots, 128] from
+    ``kernels.chain.sync_align_chunked``: chunk c at slot
+    (c % n_cls) * m_per + c // n_cls, samples at lanes 0:sym_len.  The
+    estimates read the preamble and training slots; the derot DFT runs over
+    every slot, reading lanes cp_len:cp_len + n_fft in place; the
+    ``eq_demod_pack`` kernel then reads the data slots through a block table
+    and writes bytes in chunk order (the JAX package runs this tail in XLA
+    and gathers the packed bytes at the end, rx.py:742-828).  Returns uint8
+    [..., n_bytes], laid out as ``decode_frame``'s output.
+    """
+    cr, ci = chun
+    require_full_fp32(cr.device)
+    lead = cr.shape[:-2]
+    cr = cr.reshape(-1, *cr.shape[-2:])
+    ci = ci.reshape(-1, *ci.shape[-2:])
+    n_cls = cr.shape[1] // m_per
+    sym = cfg.sym_len
+
+    def slot_of(c):
+        return (c % n_cls) * m_per + c // n_cls
+
+    last = cfg.n_locking + cfg.n_preamble - 1
+    f_delta = _cfo_estimate_lr(
+        torch.complex(cr[:, slot_of(last - 1), :sym], ci[:, slot_of(last - 1), :sym]),
+        torch.complex(cr[:, slot_of(last), :sym], ci[:, slot_of(last), :sym]),
+        cfg, cfo_estimator)
+    t0 = cfg.n_locking + cfg.n_preamble
+    train = device_table(_slot_table, (n_cls, m_per, t0, t0 + cfg.n_training),
+                         torch.long, cr.device)
+    lanes = slice(cfg.cp_len, cfg.cp_len + cfg.n_fft)
+    h_k = _channel_estimate(torch.complex(cr[:, train, lanes], ci[:, train, lanes]),
+                            f_delta, cfg)
+    sel, _, _ = _selected_bins(guard_bands, cfg)
+    yr, yi = dft_matmul_select_derot_planar(cr[:, :, lanes], ci[:, :, lanes],
+                                            sel, f_delta,
+                                            sample_offset=cfg.cp_len)
+    blocks = device_table(_slot_table, (n_cls, m_per, cfg.n_sync_chunks,
+                                        n_chunks), torch.int32, cr.device)
+    out = _tail(yr, yi, h_k, f_delta, guard_bands=guard_bands,
+                modulation=modulation, cfg=cfg, blocks=blocks)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def _resolve_derot(derot_impl: str) -> str:
+    if derot_impl not in DEROT_IMPLS:
+        raise ValueError(f"unknown derot_impl {derot_impl!r}; expected one "
+                         f"of {DEROT_IMPLS}")
+    return "matrix" if derot_impl == "auto" else derot_impl
+
+
+def _resolve_route(align_impl: str, derot_impl: str, sync_dtype,
+                   cfg: FrameConfig):
+    """(route, derot): route "fused" (K1), "unfused" (sync in torch, then
+    K3) or "chunked" (K4); see ``decode_frame``."""
+    if align_impl not in ALIGN_IMPLS:
+        raise ValueError(f"unknown align_impl {align_impl!r}; expected one "
+                         f"of {ALIGN_IMPLS}")
+    derot = _resolve_derot(derot_impl)
+    check_sync_dtype(sync_dtype)
+    if align_impl == "auto":
+        short = len(locking_template(cfg)) <= MAX_TAPS
+        route = "fused" if short and sync_dtype is None else "unfused"
+    elif align_impl in ("fused", "fused_planar"):
+        route = "fused"
+    elif align_impl == "chunked":
+        route = "chunked"
+    else:
+        route = "unfused"
+    if route != "unfused" and sync_dtype is not None:
+        raise ValueError(f"sync_dtype={sync_dtype!r} needs the unfused route "
+                         f"(align_impl 'auto', 'xla' or 'pallas'), not "
+                         f"{align_impl!r}")
+    if route == "chunked" and derot == "stream":
+        raise ValueError("align_impl='chunked' decodes with matrix derot only")
+    return route, derot
+
+
+def _decode_batch(flat: torch.Tensor, *, n_blocks: int, guard_bands: bool,
+                  modulation: Modulation, cfg: FrameConfig, sync_dtype,
+                  search_window: int | None, cfo_estimator: str,
+                  align_impl: str, derot_impl: str) -> torch.Tensor:
+    """Decode complex64 [R, T] or f32 [R, 2, T] rows by the chosen route."""
+    route, derot = _resolve_route(align_impl, derot_impl, sync_dtype, cfg)
     require_full_fp32(flat.device)
     n_chunks = cfg.n_sync_chunks + n_blocks
     need = n_chunks * cfg.sym_len
-    flat = _pad_last(flat, need - flat.shape[-1]).contiguous()
-    planes, _ = sync_align(flat, constants.locking_for(cfg), need,
-                           search_window=search_window, planar=True)
-    return _decode_planes(planes, n_chunks=n_chunks, guard_bands=guard_bands,
-                          modulation=modulation, cfg=cfg,
-                          cfo_estimator=cfo_estimator)
+    if flat.shape[-1] < need:
+        flat = _pad_last(flat, need - flat.shape[-1])
+    elif not flat.is_contiguous():
+        flat = pin_rowmajor(flat)
+    t = flat.shape[-1]
+    template = locking_template(cfg)
+    kw = dict(guard_bands=guard_bands, modulation=modulation, cfg=cfg,
+              cfo_estimator=cfo_estimator)
+    if route == "chunked":
+        chun, _, m_per = sync_align_chunked(flat, template, n_chunks=n_chunks,
+                                            cfg=cfg, search_window=search_window)
+        return decode_chunked_matrix(chun, n_chunks=n_chunks, m_per=m_per, **kw)
+    if route == "fused":
+        planes, _ = sync_align(flat, template, need,
+                               search_window=search_window, planar=True)
+    else:
+        cplx = flat if flat.dim() == 2 else torch.complex(flat[:, 0], flat[:, 1])
+        scan = cplx if search_window is None \
+            else cplx[:, :search_window + cfg.sym_len]
+        offsets = torch.clamp(sync_offset(scan, cfg, compute_dtype=sync_dtype),
+                              0, t - need)
+        planes = planar_align(flat, offsets, need, planar=True)
+    return _decode_planes(planes, n_chunks=n_chunks, derot=derot, **kw)[0]
 
 
 def decode_frame(samples: torch.Tensor, *, n_blocks: int,
                  guard_bands: bool = False,
                  modulation: Modulation = Modulation.BPSK,
                  cfg: FrameConfig = DEFAULT_CONFIG,
+                 sync_dtype=None,
                  search_window: int | None = None,
-                 cfo_estimator: str = "coherent") -> torch.Tensor:
+                 cfo_estimator: str = "coherent",
+                 align_impl: str = "auto",
+                 derot_impl: str = "auto") -> torch.Tensor:
     """Batched decode with static shapes: complex[..., T] -> uint8[..., n_bytes].
 
     ``n_blocks`` is the number of data OFDM symbols (known from the
@@ -161,14 +416,36 @@ def decode_frame(samples: torch.Tensor, *, n_blocks: int,
     ``cfo_estimator`` defaults to "coherent" (see ``_cfo_estimate_lr``).
     complex128 input is decoded in complex64.  On CUDA, TF32 must be off
     (``ops.fft.require_full_fp32``).
+
+    ``align_impl`` picks how rows are synced and aligned:
+
+    - "auto" (default): the fused ``sync_align`` kernel (K1) when the
+      locking template has at most 128 taps and ``sync_dtype`` is None;
+      otherwise the unfused route;
+    - "fused" and "fused_planar": K1, which always writes f32 planes here;
+    - "chunked": the ``sync_align_chunked`` kernel (K4) and the slot-ordered
+      tail ``decode_chunked_matrix`` (sym_len and template at most 128);
+    - "xla" and "pallas": the unfused route: ``sync_offset`` in plain torch,
+      then the ``planar_align`` kernel (K3) copies the windows.
+
+    ``sync_dtype`` (unfused route only): None (f32 matmul correlation, conv
+    over 128 taps), torch.bfloat16 (bf16 operands, f32 sums), "fft"
+    (overlap-save) or "conv".  ``derot_impl``: "auto" (= "matrix"),
+    "matrix" or "stream" (not on the chunked route).  An unknown value, or a
+    combination a route cannot take, raises ValueError.  The JAX package's
+    ``demod_impl`` and ``dft_precision`` are TPU lowering knobs and are not
+    ported: the tail is always ``eq_demod_pack`` and every DFT is full fp32.
     """
     squeeze = samples.dim() == 1
     if squeeze:
         samples = samples[None, :]
     lead = samples.shape[:-1]
     flat = samples.to(torch.complex64).reshape(-1, samples.shape[-1])
-    out = _decode_batch(flat, n_blocks, guard_bands, modulation, cfg,
-                        search_window, cfo_estimator)
+    out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+                        modulation=modulation, cfg=cfg, sync_dtype=sync_dtype,
+                        search_window=search_window,
+                        cfo_estimator=cfo_estimator, align_impl=align_impl,
+                        derot_impl=derot_impl)
     out = out.reshape(*lead, out.shape[-1])
     return out[0] if squeeze else out
 
@@ -177,11 +454,18 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
                         guard_bands: bool = False,
                         modulation: Modulation = Modulation.BPSK,
                         cfg: FrameConfig = DEFAULT_CONFIG,
+                        sync_dtype=None,
                         search_window: int | None = None,
-                        cfo_estimator: str = "coherent") -> torch.Tensor:
+                        cfo_estimator: str = "coherent",
+                        align_impl: str = "auto",
+                        derot_impl: str = "auto") -> torch.Tensor:
     """``decode_frame`` for a planar stream: f32 [..., 2, T] real/imag planes
-    (as captures deinterleave to).  The planes feed ``sync_align`` directly,
-    so no complex64 copy of the stream is made."""
+    (as captures deinterleave to), with the same selectors.  The planes feed
+    the kernels directly, so the fused and chunked routes make no complex64
+    copy of the stream.  A strided view, such as
+    ``torch.view_as_real(rx).transpose(1, 2)``, is made row-major by the
+    ``pin_rowmajor`` kernel first; a contiguous input is not copied.  The
+    TPU's pre-tiled [..., 2, tiles, 128] form is not taken."""
     if planes.dim() < 2 or planes.shape[-2] != 2:
         raise ValueError(f"planes must be [..., 2, T], got {tuple(planes.shape)}")
     squeeze = planes.dim() == 2
@@ -189,8 +473,11 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
         planes = planes[None]
     lead = planes.shape[:-2]
     flat = planes.to(torch.float32).reshape(-1, 2, planes.shape[-1])
-    out = _decode_batch(flat, n_blocks, guard_bands, modulation, cfg,
-                        search_window, cfo_estimator)
+    out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+                        modulation=modulation, cfg=cfg, sync_dtype=sync_dtype,
+                        search_window=search_window,
+                        cfo_estimator=cfo_estimator, align_impl=align_impl,
+                        derot_impl=derot_impl)
     out = out.reshape(*lead, out.shape[-1])
     return out[0] if squeeze else out
 
@@ -203,9 +490,13 @@ def decode(samples, guard_bands: bool = False,
 
     The stream is decoded from its sync offset to its end, the tail chunk
     zero-padded (split_into_chunks, src/receiver.rs:192-210), with the
-    reference CFO estimator; the header's length truncates the payload.
-    Raises DecodeError where the reference bails out on short input.
-    ``samples``: a 1-D complex tensor (its device is used) or array.
+    reference CFO estimator and stream derot (``decode_aligned``'s default,
+    as ofdm_tpu's ``decode``); the header's length truncates the payload.
+    Templates of at most 128 taps sync and align in one ``sync_align`` call;
+    longer ones sync with the conv correlation and align with
+    ``planar_align``.  Raises DecodeError where the reference bails out on
+    short input.  ``samples``: a 1-D complex tensor (its device is used) or
+    array.
     """
     x = samples if isinstance(samples, torch.Tensor) \
         else torch.as_tensor(np.asarray(samples))
@@ -217,13 +508,18 @@ def decode(samples, guard_bands: bool = False,
     t = x.shape[-1]
     if t < cfg.n_sync_chunks * sym:
         raise DecodeError("Input not long enough, bailing early")
-    # One sync_align call over lags [0, T) of the stream, zero-padded so the
-    # window at any offset holds the longest frame the stream can carry.
-    template = constants.locking_for(cfg)
-    need_max = -(-t // sym) * sym
-    window, raw = sync_align(_pad_last(x, need_max)[None], template, need_max,
-                             search_window=t - len(template), planar=True)
-    offset = int(raw[0])
+    template = locking_template(cfg)
+    window = None
+    if len(template) <= MAX_TAPS:
+        # One sync_align call over lags [0, T) of the stream, zero-padded so
+        # the window at any offset holds the longest frame it can carry.
+        need_max = -(-t // sym) * sym
+        window, raw = sync_align(_pad_last(x, need_max)[None], template,
+                                 need_max, search_window=t - len(template),
+                                 planar=True)
+        offset = int(raw[0])
+    else:
+        offset = int(sync_offset(x, cfg))
     # The reference computes peak_lag - 1 and panics on -1 (a clean stream
     # with no delay); clamp it to 0: the same alignment.
     if offset == -1:
@@ -234,10 +530,16 @@ def decode(samples, guard_bands: bool = False,
     if remaining < cfg.n_sync_chunks * sym:
         raise DecodeError("Input not long enough, bailing early")
     n_chunks = -(-remaining // sym)
-    planes = window[:, :, :n_chunks * sym].contiguous()
-    out = _decode_planes(planes, n_chunks=n_chunks, guard_bands=guard_bands,
-                         modulation=modulation, cfg=cfg,
-                         cfo_estimator="reference")
+    if window is not None:
+        planes = window[:, :, :n_chunks * sym]
+    else:
+        # padded by one symbol, the window of the last partial chunk fits
+        offsets = torch.tensor([offset], dtype=torch.int32, device=x.device)
+        planes = planar_align(_pad_last(x, sym)[None], offsets, n_chunks * sym,
+                              planar=True)
+    out, _ = _decode_planes(planes, n_chunks=n_chunks, derot="stream",
+                            guard_bands=guard_bands, modulation=modulation,
+                            cfg=cfg, cfo_estimator="reference")
     raw_bytes = out[0].cpu().numpy()
     if raw_bytes.shape[-1] < HEADER_LEN:
         raise DecodeError("decoded stream shorter than header")

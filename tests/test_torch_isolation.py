@@ -43,6 +43,11 @@ nb = ott.n_data_blocks(64, ott.Modulation.QAM16, True)
 out = ott.decode_frame(rx, n_blocks=nb, guard_bands=True,
                        modulation=ott.Modulation.QAM16)
 assert torch.equal(out[16:80], data), out
+for kw in (dict(align_impl="chunked"), dict(sync_dtype=torch.bfloat16),
+           dict(sync_dtype="conv", derot_impl="stream")):
+    assert torch.equal(ott.decode_frame(rx, n_blocks=nb, guard_bands=True,
+                                        modulation=ott.Modulation.QAM16, **kw),
+                       out), kw
 assert bytes(ott.decode(rx, guard_bands=True,
                         modulation=ott.Modulation.QAM16)) == bytes(range(64))
 assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)

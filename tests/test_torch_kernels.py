@@ -1,10 +1,12 @@
-"""The two kernels of the port: their plain versions against the JAX Pallas
+"""The kernels of the port: their plain versions against the JAX Pallas
 kernels (interpret mode), their wrappers' checks, and, on a CUDA device
-only, the kernels against their plain versions.
+only, the kernels against their plain versions.  (planar_align,
+pin_rowmajor and sync_align_chunked meet the Pallas kernels in
+test_torch_decode_options.py and test_torch_chunked.py.)
 
 sync_align moves samples, so windows compare bitwise once the offsets agree;
 the peaks here are well separated, as reduction order may resolve a
-near-exact tie differently (docs/PARITY.md).  eq_demod_pack compares bytes at
+near-exact tie differently (ofdm_tpu_torch/PARITY.md).  eq_demod_pack compares bytes at
 operating SNR, where the equalizer's y/h vs y*(1/h) and the TPU kernel's
 polynomial atan2 sit orders of magnitude below the decision margin.
 
@@ -19,7 +21,11 @@ import pytest
 import torch
 
 from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
-from ofdm_tpu_torch.kernels.align import sync_align, sync_align_reference
+from ofdm_tpu_torch.kernels.align import (pin_rowmajor, pin_rowmajor_reference,
+                                          planar_align, planar_align_reference,
+                                          sync_align, sync_align_reference)
+from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
+                                          sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
 from ofdm_tpu_torch.phy.modulation import BITS_PER_SYMBOL, modulate_bytes_packed
 
@@ -203,6 +209,63 @@ def test_eq_demod_pack_rejects_bad_input():
     assert got.dtype == torch.uint8 and got.shape == (len(y), y.shape[1] * 36)
 
 
+def test_eq_demod_pack_block_table():
+    """A block table reads output block c from input block blocks[c]: the
+    same bytes as the planes gathered into that order first."""
+    y, h, nd, n_pilots, sent = _tail_case(Modulation.QAM16, True, seed=2, nb=12)
+    perm = np.random.default_rng(3).permutation(12)
+    shuffled = np.empty_like(y)
+    shuffled[:, perm] = y                  # block c now sits at perm[c]
+    packed = torch.as_tensor(np.concatenate([shuffled.real, shuffled.imag], -1))
+    nbins = y.shape[-1]
+    kw = dict(n_data=nd, n_pilots=n_pilots, modulation=Modulation.QAM16,
+              cfg=DEFAULT_CONFIG)
+    fd = torch.full((len(y),), 0.002)
+    blocks = torch.as_tensor(perm[:10], dtype=torch.int32)
+    got = eq_demod_pack(packed[..., :nbins], packed[..., nbins:],
+                        torch.as_tensor(h), fd, blocks=blocks, **kw)
+    ordered = torch.as_tensor(np.concatenate([y.real, y.imag], -1))[:, :10] \
+        .contiguous()
+    want = eq_demod_pack_reference(ordered[..., :nbins], ordered[..., nbins:],
+                                   torch.as_tensor(h), fd, **kw)
+    assert torch.equal(got, want) and got.shape == (len(y), 10 * 24)
+    with pytest.raises(ValueError, match="blocks"):
+        eq_demod_pack(packed[..., :nbins], packed[..., nbins:],
+                      torch.as_tensor(h), fd, blocks=blocks.long(), **kw)
+
+
+def test_new_wrappers_on_cpu_run_the_plain_versions():
+    x = torch.as_tensor(_stream(TPL))
+    before = (planar_align.launches, pin_rowmajor.launches,
+              sync_align_chunked.launches)
+    offs = torch.arange(len(DELAYS), dtype=torch.int32) * 7
+    assert torch.equal(planar_align(x, offs, NEED, planar=True),
+                       planar_align_reference(x, offs, NEED, planar=True))
+    v = torch.view_as_real(x).transpose(1, 2)
+    assert torch.equal(pin_rowmajor(v), v.contiguous())
+    (cr, ci), slots, m_per = sync_align_chunked(x, TPL, n_chunks=30)
+    (rr, ri), _, _ = sync_align_chunked_reference(x, TPL, n_chunks=30)
+    assert torch.equal(cr, rr) and torch.equal(ci, ri)
+    assert (slots, m_per) == (64, 8) and cr.shape == (len(DELAYS), 64, 128)
+    assert (planar_align.launches, pin_rowmajor.launches,
+            sync_align_chunked.launches) == before
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: planar_align(x[:, ::2], torch.zeros(8, dtype=torch.int32), 100),
+     ValueError),
+    (lambda x: planar_align(x, torch.zeros(3, dtype=torch.int32), 100), ValueError),
+    (lambda x: planar_align(x, torch.zeros(8, dtype=torch.int32), T + 1),
+     ValueError),
+    (lambda x: pin_rowmajor(x[0]), ValueError),
+    (lambda x: pin_rowmajor(x.reshape(2, 2, 2, 1, -1)), ValueError),
+    (lambda x: sync_align_chunked(x, TPL, n_chunks=T // 80 + 1), ValueError),
+])
+def test_new_wrappers_reject_bad_input(bad, err):
+    with pytest.raises(err):
+        bad(torch.as_tensor(_stream(TPL)))
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phases 2-3 run this "
@@ -238,5 +301,64 @@ def test_eq_demod_pack_kernel_matches_plain(mod, guard_bands):
     args = (packed[..., :nbins], packed[..., nbins:], torch.as_tensor(h).to(dev),
             torch.full((len(y),), 0.01, device=dev))
     kw = dict(n_data=nd, n_pilots=n_pilots, modulation=mod, cfg=DEFAULT_CONFIG)
+    assert torch.equal(eq_demod_pack(*args, **kw),
+                       eq_demod_pack_reference(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_planar_align_kernel_matches_plain():
+    """Covered on the card by chip_smoke.py's planar_align phase."""
+    dev = _cuda()
+    s = torch.as_tensor(_stream(TPL)).to(dev)
+    offs = torch.tensor([0, 1, 79, 80, 127, 128, 129, T - NEED],
+                        dtype=torch.int32, device=dev)
+    for x in (s, torch.stack([s.real, s.imag], dim=1).contiguous()):
+        for planar in (False, True):
+            assert torch.equal(planar_align(x, offs, NEED, planar=planar),
+                               planar_align_reference(x, offs, NEED,
+                                                      planar=planar))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tpl_name", ["real", "complex"])
+def test_sync_align_chunked_kernel_matches_plain(tpl_name):
+    """Covered on the card by chip_smoke.py's sync_align_chunked phase."""
+    dev = _cuda()
+    tpl = TPL if tpl_name == "real" else TPL_C
+    s = torch.as_tensor(_stream(tpl)).to(dev)
+    for x in (s, torch.stack([s.real, s.imag], dim=1).contiguous()):
+        (gr, gi), _, _ = sync_align_chunked(x, tpl, n_chunks=30)
+        (rr, ri), _, _ = sync_align_chunked_reference(x, tpl, n_chunks=30)
+        assert torch.equal(gr, rr) and torch.equal(gi, ri)
+
+
+@pytest.mark.gpu
+def test_pin_rowmajor_kernel_matches_plain():
+    """Covered on the card by chip_smoke.py's pin_rowmajor phase."""
+    dev = _cuda()
+    rx = torch.as_tensor(_stream(TPL)).to(dev)
+    views = [torch.view_as_real(rx).transpose(1, 2),          # f32 [R, 2, T]
+             rx.t(),                                          # complex64 2-D
+             torch.arange(5 * 2 * 7 * 128, device=dev, dtype=torch.int32)
+             .reshape(5, 2, 7, 128).permute(3, 1, 0, 2),     # int32 4-D
+             torch.arange(999, device=dev, dtype=torch.uint8).reshape(27, 37).t(),
+             rx.real.contiguous()]                            # already row-major
+    for v in views:
+        got = pin_rowmajor(v)
+        assert got.is_contiguous() and torch.equal(got, pin_rowmajor_reference(v))
+
+
+@pytest.mark.gpu
+def test_eq_demod_pack_block_table_kernel_matches_plain():
+    dev = _cuda()
+    y, h, nd, n_pilots, _ = _tail_case(Modulation.QAM64, True, seed=4)
+    packed = torch.as_tensor(np.concatenate([y.real, y.imag], -1)).to(dev)
+    nbins = y.shape[-1]
+    blocks = torch.as_tensor(np.random.default_rng(5).permutation(y.shape[1])[:15],
+                             dtype=torch.int32).to(dev)
+    args = (packed[..., :nbins], packed[..., nbins:], torch.as_tensor(h).to(dev),
+            torch.full((len(y),), 0.01, device=dev))
+    kw = dict(n_data=nd, n_pilots=n_pilots, modulation=Modulation.QAM64,
+              cfg=DEFAULT_CONFIG, blocks=blocks)
     assert torch.equal(eq_demod_pack(*args, **kw),
                        eq_demod_pack_reference(*args, **kw))

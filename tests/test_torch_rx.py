@@ -3,7 +3,7 @@ samples made by the JAX package (its channel, its noise), byte for byte.
 
 Rows the JAX decoder itself loses are left out of the comparison: the
 port's sync sums in another order, and on a lost row a near-tie may resolve
-elsewhere (docs/PARITY.md).  At these SNRs every row decodes.
+elsewhere (ofdm_tpu_torch/PARITY.md).  At these SNRs every row decodes.
 """
 
 import os
