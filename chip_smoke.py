@@ -9,10 +9,14 @@ at once) and runs eight phases:
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
      complex and planar input, one ~1M-sample row, a search window, a
-     complex template.  Windows and offsets must be identical;
+     complex template, and the correlation pass's edges: 1 and 128 taps
+     (real and complex), a scan that ends 3 lags into a block, a row
+     shorter than one block, exact ties between a scan's first and last
+     lags.  Windows and offsets must be identical;
   3. eq_demod_pack (K2) against its plain version: headline shape QAM64 with
-     a CFO phase, QPSK, BPSK without guard bands, and QAM64 through a block
-     table (the chunked route's slot order).  Bytes must be identical;
+     a CFO phase, QPSK, BPSK without guard bands, QAM16 and QAM256, each
+     also through a block table (the chunked route's slot order), and
+     QAM64 with guard bands but no pilots.  Bytes must be identical;
   4. end to end on the card: 256 x 8,192-byte payloads, encode (QAM64,
      guard bands), channel at SNR 45 without and with CFO, decode_frame on
      both.  The clean batch must decode with 0 byte errors, >= 95% of the
@@ -37,7 +41,10 @@ at once) and runs eight phases:
      chunks) through decode_frame (K3 + K2) and decode on one row;
   8. timing: decode_frame ms/step per route (CUDA events) and its device
      busy time, and the device time per call of K3, K4 and K5 beside their
-     plain versions'.  The ``kernels`` line carries phases 5 and 8.
+     plain versions' and, for K5, beside ``x.contiguous()``.  The
+     ``kernels`` line carries phases 5 and 8 and each kernel's bound: the
+     larger of its flops at the fp32 peak and its bytes at the memory rate,
+     from this run's shapes.
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
@@ -55,6 +62,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -79,11 +87,21 @@ MOD = ott.Modulation.QAM64
 SNR = 45.0
 REPS = 30
 SEED = 0
+# NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of flops at the fp32 peak and bytes at the memory rate."""
+    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
 def card() -> str:
@@ -173,8 +191,28 @@ def synth_sync(gen, dev, rows, t, delays, template, scale=1.0):
     return s
 
 
+def tie_rows(dev, tpl, t, lag_bound):
+    """Rows whose peak power ties exactly between two lags: integer samples
+    and an integer template, so every correlation sum is exact in any order.
+    Row 0 holds the template at the first and the last lag of the scan,
+    row 1 is all zeros (every lag ties), row 2 holds it at lag 5 and the
+    last lag, row 3 at the last lag with a louder copy past the scan.
+    Returns (rows, the lag each row must resolve to)."""
+    k, last = len(tpl), lag_bound - 1
+    w = torch.as_tensor(tpl, dtype=torch.complex64, device=dev)
+    s = torch.zeros((4, t), dtype=torch.complex64, device=dev)
+    for row, lag, scale in ((0, 0, 1), (0, last, 1), (2, 5, 1), (2, last, 1),
+                            (3, last, 1), (3, t - k, 2)):
+        s[row, lag:lag + k] += scale * w
+    return s, [0, 0, 5, last]
+
+
 def phase_sync_align(gen, dev, template):
-    """K1 against its plain version; returns the largest window difference."""
+    """K1 against its plain version; returns the largest window difference.
+    Besides the headline shapes, the edges of the correlation pass (8 lags
+    per thread, 1,024 per block): 1 and 128 taps, a scan that ends 3 lags
+    into a block, a row shorter than one block, and exact ties between the
+    first and the last lag of a scan."""
     need = (10 + 228) * 80
     cases = []
     t = 19183
@@ -196,6 +234,36 @@ def phase_sync_align(gen, dev, template):
     cd = delays[:16]
     cases.append(("complex template", synth_sync(gen, dev, len(cd), 2560, cd, tpl_c),
                   tpl_c, 2400, None, cd))
+
+    rng = np.random.default_rng(SEED)
+    tpl1 = np.ones(1, np.complex64)
+    d1 = torch.randint(0, 4000, (64,), generator=gen, device=dev).tolist()
+    cases.append(("K=1 tap", synth_sync(gen, dev, 64, 5000, d1, tpl1), tpl1,
+                  1000, None, d1))
+    for kind in ("real", "complex"):
+        tpl128 = rng.standard_normal(128) + (1j * rng.standard_normal(128)
+                                             if kind == "complex" else 0)
+        tpl128 = (tpl128 / np.abs(tpl128).max()).astype(np.complex64)
+        cases.append((f"K=128 {kind} template",
+                      synth_sync(gen, dev, 64, 5000, d1, tpl128), tpl128, 1000,
+                      None, d1))
+    # lag_bound = 1,971 + 80 = 2,051: 3 lags into the third block, and not
+    # a multiple of 8; peaks on both sides of the block edge and at the last lag
+    de = [0, 7, 1023, 1024, 2047, 2048, 2049, 2050] + torch.randint(
+        0, 2051, (56,), generator=gen, device=dev).tolist()
+    cases.append(("lag_bound 2,051", synth_sync(gen, dev, 64, 5000, de, template),
+                  template, 1000, 1971, de))
+    ds = [0, 1, 99, 100, 620] + torch.randint(0, 621, (59,), generator=gen,
+                                              device=dev).tolist()
+    cases.append(("T=700, shorter than a block",
+                  synth_sync(gen, dev, 64, 700, ds, template), template, 600,
+                  None, ds))
+    tpl_int = rng.choice([-2.0, -1.0, 1.0, 2.0], 80).astype(np.complex64)
+    tpl_int_c = (tpl_int + 1j * rng.choice([-1.0, 1.0], 80)).astype(np.complex64)
+    for kind, tpl_t in (("real", tpl_int), ("complex", tpl_int_c)):
+        ties, first = tie_rows(dev, tpl_t, 5000, 2051)
+        cases.append((f"exact ties, {kind} template", ties, tpl_t, 1000, 1971,
+                      first))
     worst = 0.0
     for name, x, tpl, nd, win, dl in cases:
         t_x = x.shape[-1]
@@ -212,13 +280,13 @@ def phase_sync_align(gen, dev, template):
             check(diff == 0.0, f"sync_align {name} planar={planar}: window "
                   f"differs by {diff}")
         print(f"phase 2 sync_align {name}: rows={x.shape[0]} T={t_x} need={nd} "
-              f"windows and offsets identical")
+              f"K={len(tpl)} search_window={win}: windows and offsets identical")
     return worst
 
 
-def synth_tail(gen, dev, mod, guard_bands):
+def synth_tail(gen, dev, mod, guard_bands, snr=SNR):
     """Tail inputs with a known answer: symbols through a random channel, a
-    per-chunk CFO rotation, a pilot phase and noise at SNR 45."""
+    per-chunk CFO rotation, a pilot phase and noise at ``snr``."""
     cfg = ott.DEFAULT_CONFIG
     sel, nd, n_pilots = rx_mod._selected_bins(guard_bands, cfg)
     nb = ott.n_data_blocks(PAYLOAD, mod, guard_bands)
@@ -240,7 +308,7 @@ def synth_tail(gen, dev, mod, guard_bands):
                       0.05 * torch.randn((BATCH, nb, 1), generator=gen, device=dev))
     y = x * h[:, None, :] * rot[..., None] * phi
     p = (y.abs() ** 2).mean()
-    amp = torch.sqrt(p / 10 ** (SNR / 10) / 2)
+    amp = torch.sqrt(p / 10 ** (snr / 10) / 2)
     y = y + amp * torch.complex(
         torch.randn(y.shape, generator=gen, device=dev),
         torch.randn(y.shape, generator=gen, device=dev))
@@ -250,32 +318,44 @@ def synth_tail(gen, dev, mod, guard_bands):
 
 
 def phase_eq_demod(gen, dev):
+    """K2 against its plain version on all five modulations, each also
+    through a block table (the chunked route's slot order), and with guard
+    bands but no pilots; returns the largest byte difference."""
     worst = 0
-    for mod, gb in [(ott.Modulation.QAM64, True), (ott.Modulation.QPSK, True),
-                    (ott.Modulation.BPSK, False)]:
-        yr, yi, h, fd, nd, npil, sent = synth_tail(gen, dev, mod, gb)
-        kw = dict(n_data=nd, n_pilots=npil, modulation=mod, cfg=ott.DEFAULT_CONFIG)
-        got = eq_demod_pack(yr, yi, h, fd, **kw)
-        ref = eq_demod_pack_reference(yr, yi, h, fd, **kw)
+
+    def compare(label, args, kw):
+        nonlocal worst
+        got = eq_demod_pack(*args, **kw)
+        ref = eq_demod_pack_reference(*args, **kw)
         torch.cuda.synchronize()
         diff = (got.int() - ref.int()).abs().max().item()
         worst = max(worst, diff)
-        check(diff == 0, f"eq_demod_pack {mod.value}: bytes differ from plain")
+        check(diff == 0, f"eq_demod_pack {label}: bytes differ from plain")
+        return got
+
+    for mod, gb in [(ott.Modulation.QAM64, True), (ott.Modulation.QPSK, True),
+                    (ott.Modulation.BPSK, False), (ott.Modulation.QAM16, True),
+                    (ott.Modulation.QAM256, True)]:
+        # QAM256's corner points need SNR 55 to decode clean after the pilots'
+        # phase noise (tests/test_torch_kernels.py::_tail_case)
+        snr = 55.0 if mod is ott.Modulation.QAM256 else SNR
+        yr, yi, h, fd, nd, npil, sent = synth_tail(gen, dev, mod, gb, snr)
+        kw = dict(n_data=nd, n_pilots=npil, modulation=mod, cfg=ott.DEFAULT_CONFIG)
+        got = compare(mod.value, (yr, yi, h, fd), kw)
         check(torch.equal(got, sent), f"eq_demod_pack {mod.value}: decode errors")
+        # blocks read in reverse order
+        blocks = torch.arange(yr.shape[1] - 1, -1, -1, dtype=torch.int32,
+                              device=dev)
+        compare(f"{mod.value} block table", (yr, yi, h, fd),
+                dict(kw, blocks=blocks))
         print(f"phase 3 eq_demod_pack {mod.value} guard_bands={gb}: "
               f"B={yr.shape[0]} NB={yr.shape[1]} nbins={yr.shape[2]} "
-              "bytes identical, payload exact")
+              "bytes identical, payload exact; with a reversed block table "
+              "identical")
         if mod is ott.Modulation.QAM64:
-            # the chunked route's block table: blocks read in reverse order
-            blocks = torch.arange(yr.shape[1] - 1, -1, -1, dtype=torch.int32,
-                                  device=dev)
-            got = eq_demod_pack(yr, yi, h, fd, blocks=blocks, **kw)
-            ref = eq_demod_pack_reference(yr, yi, h, fd, blocks=blocks, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(got, ref), "eq_demod_pack with a block table "
-                  "differs from plain")
-            print("phase 3 eq_demod_pack qam64 with a reversed block table: "
-                  "bytes identical")
+            compare("qam64 n_pilots=0", (yr, yi, h, fd), dict(kw, n_pilots=0))
+            print("phase 3 eq_demod_pack qam64 guard bands with n_pilots=0 "
+                  f"(nbins={yr.shape[2]}, n_data={nd}): bytes identical")
     return worst
 
 
@@ -568,10 +648,39 @@ def main() -> None:
         ("pin_rowmajor", lambda: pin_rowmajor(view)),
         ("pin_rowmajor plain", lambda: pin_rowmajor_reference(view))])
 
+    # the one PyTorch call that computes a kernel's function: K5's alone
+    time_kernels(8, [("pin_rowmajor library", lambda: view.contiguous())])
+
+    # bounds from this run's shapes: each input read once, each output
+    # written once; the correlation's FMAs (2 flops, 2 planes, 2 per
+    # complex tap) over the fp32 rate without tensor cores
+    r = rx_clean.shape[0]
+    corr_flops = r * t * len(template) * 2 * 2 * (
+        1 if not np.any(np.asarray(template).imag) else 2)
+    cplx_in = r * t * 8
+    # K2: the planes at the selected bins, h, f_delta in; the bytes out;
+    # ~12 flops per bin (rotate, equalize) and ~10 per data bin (pilot
+    # phase, decision)
+    yr_t, _, h_t, fd_t = ti
+    n_sym = yr_t.shape[0] * yr_t.shape[1] * plain_kw["n_data"]
+    k2_bytes = (2 * yr_t.numel() * 4 + h_t.numel() * 8 + fd_t.numel() * 4
+                + n_sym * BITS_PER_SYMBOL[MOD] // 8)
+    k2_flops = yr_t.numel() * 12 + n_sym * 10
+    bounds = {
+        "sync_align": bound(corr_flops, cplx_in + r * need * 8 + r * 4),
+        "eq_demod_pack": bound(k2_flops, k2_bytes),
+        "planar_align": bound(0, 2 * r * need * 8 + r * 4),
+        "sync_align_chunked": bound(corr_flops, cplx_in + 2 * r * slots * 128 * 4),
+        "pin_rowmajor": bound(0, 2 * view.numel() * 4),
+    }
+
     def entry(name, source, replaces, n, err):
+        bound_ms, bound_by = bounds[name]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": dev_ms[name], "plain_ms": dev_ms[f"{name} plain"]}
+                "ms": dev_ms[name], "plain_ms": dev_ms[f"{name} plain"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": dev_ms.get(f"{name} library")}
 
     kernels = [
         entry("sync_align", "ofdm_tpu_torch/csrc/sync_align.cu",
@@ -590,6 +699,12 @@ def main() -> None:
               "ofdm_tpu/kernels/align_pallas.py:237",
               n_view["pin_rowmajor"], k5_err),
     ]
+    for e in kernels:
+        print(f"kernel {e['name']}: {e['ms']:.4f} ms/call, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), roofline share "
+              f"{e['bound_ms'] / e['ms']:.3f}; plain {e['plain_ms']:.4f}"
+              + ("" if e["library_ms"] is None
+                 else f"; library {e['library_ms']:.4f}") + f" on {name_limit}")
     print(name_limit)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ kernels written for the NVIDIA H100 (sm_90a).
 It imports torch and numpy, never jax: it runs where the JAX package is
 absent, and ``ofdm_tpu`` stays the reference it is tested against.  Module
 layout and names mirror ``ofdm_tpu``.  Functions take tensors and work on
-their device; randomness comes from explicit ``torch.Generator``s.
+their device; ``encode`` and ``decode`` also take bytes or numpy arrays,
+which they put on CUDA unless the caller passes ``device=`` (``"cpu"`` to
+run on the CPU).  Randomness comes from explicit ``torch.Generator``s.
 
 On CUDA the decode path refuses to run while TF32 is allowed
 (``torch.backends.cuda.matmul.allow_tf32`` or

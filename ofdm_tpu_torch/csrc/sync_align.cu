@@ -36,17 +36,32 @@
 //     256 slots x 128 lanes x 2 planes (~67 MB), ~32 us with its read.
 //   - FLOPs: ~1.6 GFLOP of fp32 correlation (R * T * K * 2 planes * 2):
 //     ~24 us at the 67 TFLOP/s fp32 peak.  The tensor cores are not used:
-//     fp32 must not fall to TF32 (the QAM256 margin needs full fp32 sync).
-//   - in this simple design the inner loop issues two shared-memory loads
-//     per tap and lag, so shared-memory bandwidth, not DRAM or the FMA
-//     units, is the expected limit.  Register tiling of consecutive lags
-//     is the next step.
+//     fp32 must not fall to TF32 (the QAM256 margin needs full fp32 sync),
+//     and a 3xTF32 split would change the sum order and so the powers.
+//   - an SM issues one shared-memory load per clock against four FMAs, so
+//     a loop with a load per tap and lag is load-bound at ~6x the FMA time.
 //
 // Design:
 //   kernel 1 (corr_argmax): grid (rows, lag blocks).  A block stages
-//     kLagsPerBlock + K - 1 samples of both planes, computes the power of
-//     its lags, and writes its best (power, lag) as one packed 64-bit key.
+//     kLagsPerBlock + K samples of both planes, computes the power of its
+//     lags, and writes its best (power, lag) as one packed 64-bit key.
 //     Rows of any length work: nothing assumes a row fits in shared memory.
+//     Each thread owns kLagsPerThread (L) consecutive lags, held as L pairs
+//     of accumulators, and a window of L samples per plane in registers:
+//     per tap it loads one new sample of each plane and one template tap,
+//     and issues 2L FMAs (4L for a complex template), so the loop is bound
+//     by the FMAs, not by the loads.  The taps come as float4 broadcasts
+//     of 4 taps.  Threads L floats apart would meet in the same banks, so
+//     the staged samples are padded: sample n sits at n + n / L, and
+//     neighbouring threads read (L + 1) floats apart (an odd stride).
+//     Every lag sums its taps j = 0..K-1 in the same fmaf chain as before
+//     this layout, so each power, each key, every offset and the
+//     first-occurrence tie-breaking are bitwise what the one-lag-per-thread
+//     loop gave.  (Measured on the H100 at the decode path's shape: 8 lags
+//     and 128 threads were the fastest of 8-16 lags and 128-256 threads,
+//     python -m ofdm_tpu_torch.kernels.corr_breakdown; a grid-stride loop
+//     that loaded the next tile during the current one's taps, into
+//     registers or by cp.async, was not faster.)
 //   kernel 2 (window, K1; chunk, K4): grid (rows, copy blocks).  Each block
 //     reduces its row's keys (a second pass instead of atomics:
 //     deterministic, no memset), derives the offset and copies its share.
@@ -64,8 +79,19 @@
 namespace {
 
 constexpr int kMaxTaps = 128;
-constexpr int kThreads = 256;
-constexpr int kLagsPerBlock = 1024;
+constexpr int kThreads = 256;                      // copy kernels
+// correlation pass: kLagsPerThread a multiple of 4 (float4 taps), even
+// (so the padded stride kLagsPerThread + 1 is odd)
+constexpr int kCorrThreads = 128;
+constexpr int kLagsPerThread = 8;
+constexpr int kLagsPerBlock = kCorrThreads * kLagsPerThread;
+// staged samples per plane: the block's lags and K more (the last tap group
+// preloads the window of a next group that never comes), padded
+constexpr int kStage = kLagsPerBlock + kMaxTaps;
+constexpr int kStagePadded = kStage + kStage / kLagsPerThread;
+constexpr int kStagePerThread = (kStage + kCorrThreads - 1) / kCorrThreads;
+// template taps, zero past K up to whole groups of kLagsPerThread
+constexpr int kTapSlots = (kMaxTaps + kLagsPerThread - 1) / kLagsPerThread * kLagsPerThread;
 constexpr int kCopyPerThread = 4;
 constexpr int kCopyPerBlock = kThreads * kCopyPerThread;
 constexpr int kLanes = 128;                        // K4: samples per chunk slot
@@ -88,69 +114,150 @@ __device__ __forceinline__ unsigned long long umax64(unsigned long long a,
   return a > b ? a : b;
 }
 
-// Max over the block; the result is valid in thread 0.
+// Max over a block of kBlock threads; the result is valid in thread 0.
+template <int kBlock>
 __device__ unsigned long long block_max(unsigned long long v,
                                         unsigned long long* s_warp) {
   for (int o = 16; o > 0; o >>= 1) v = umax64(v, __shfl_down_sync(0xffffffffu, v, o));
   if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x < 32) {
-    v = threadIdx.x < kThreads / 32 ? s_warp[threadIdx.x] : 0ull;
+    v = threadIdx.x < kBlock / 32 ? s_warp[threadIdx.x] : 0ull;
     for (int o = 16; o > 0; o >>= 1) v = umax64(v, __shfl_down_sync(0xffffffffu, v, o));
   }
   return v;
 }
 
+// One tap for one lag: c += x * conj(w), the order of the plain loop.
 template <bool kRealTemplate>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void tap(float xr, float xi, float wr, float wi,
+                                    float& cr, float& ci) {
+  if (kRealTemplate) {
+    cr = fmaf(xr, wr, cr);
+    ci = fmaf(xi, wr, ci);
+  } else {                                      // (xr + j xi) * (wr - j wi)
+    cr = fmaf(xr, wr, fmaf(xi, wi, cr));
+    ci = fmaf(xi, wr, fmaf(-xr, wi, ci));
+  }
+}
+
+// Taps j0 .. j0 + n - 1 (n <= L, j0 a multiple of L) for the thread's L
+// lags.  On entry x[q] holds sample (first lag) + j0 + q; after tap u the
+// slot x[u] takes sample (first lag) + j0 + L + u, so lag i reads
+// x[(i + u) % L] at tap u, and on exit (n = L) the window has moved by L.
+// p points at the padded sample (first lag) + j0, whose next L samples sit
+// at p[L + 1 + u].
+template <bool kRealTemplate>
+__device__ __forceinline__ void tap_group(const float* __restrict__ pr,
+                                          const float* __restrict__ pi,
+                                          const float4* __restrict__ wr4,
+                                          const float4* __restrict__ wi4, int j0,
+                                          int n, float (&xr)[kLagsPerThread],
+                                          float (&xi)[kLagsPerThread],
+                                          float (&cr)[kLagsPerThread],
+                                          float (&ci)[kLagsPerThread]) {
+  constexpr int L = kLagsPerThread;
+  float wr[L], wi[L];
+#pragma unroll
+  for (int q = 0; q < L; q += 4) {
+    const float4 a = wr4[(j0 + q) / 4];
+    wr[q] = a.x; wr[q + 1] = a.y; wr[q + 2] = a.z; wr[q + 3] = a.w;
+    if (!kRealTemplate) {
+      const float4 b = wi4[(j0 + q) / 4];
+      wi[q] = b.x; wi[q + 1] = b.y; wi[q + 2] = b.z; wi[q + 3] = b.w;
+    } else {
+      wi[q] = wi[q + 1] = wi[q + 2] = wi[q + 3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < L; ++u) {
+    if (u < n) {
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        tap<kRealTemplate>(xr[(i + u) % L], xi[(i + u) % L], wr[u], wi[u],
+                           cr[i], ci[i]);
+      }
+      xr[u] = pr[L + 1 + u];
+      xi[u] = pi[L + 1 + u];
+    }
+  }
+}
+
+template <bool kRealTemplate>
+__global__ void __launch_bounds__(kCorrThreads)
 corr_argmax_kernel(const float* __restrict__ in, long long row_stride,
                    long long plane_stride, long long elem_stride, int t,
                    const float2* __restrict__ tpl, int k, int lag_bound,
                    unsigned long long* __restrict__ partial) {
-  __shared__ float s_re[kLagsPerBlock + kMaxTaps];
-  __shared__ float s_im[kLagsPerBlock + kMaxTaps];
-  __shared__ float2 s_tpl[kMaxTaps];
-  __shared__ unsigned long long s_warp[kThreads / 32];
+  constexpr int L = kLagsPerThread;
+  __shared__ float s_re[kStagePadded];
+  __shared__ float s_im[kStagePadded];
+  __shared__ float4 s_wr[kTapSlots / 4];
+  __shared__ float4 s_wi[kTapSlots / 4];
+  __shared__ unsigned long long s_warp[kCorrThreads / 32];
 
   const int r = blockIdx.x;
   const int lag0 = blockIdx.y * kLagsPerBlock;
   const float* row = in + static_cast<long long>(r) * row_stride;
-  for (int i = threadIdx.x; i < kLagsPerBlock + k - 1; i += kThreads) {
+  // staging: every load of the thread is issued before the first store, so
+  // they are in flight together (a loop of load-then-store waits on each)
+  const bool interleaved = plane_stride == 1 && elem_stride == 2;   // complex64
+  const int n_stage = kLagsPerBlock + k;
+  float2 v[kStagePerThread];
+#pragma unroll
+  for (int q = 0; q < kStagePerThread; ++q) {
+    const int i = threadIdx.x + q * kCorrThreads;
     const long long s = static_cast<long long>(lag0) + i;
-    float vr = 0.f, vi = 0.f;
-    if (s < t) {
-      vr = row[s * elem_stride];
-      vi = row[plane_stride + s * elem_stride];
+    v[q] = make_float2(0.f, 0.f);
+    if (i < n_stage && s < t) {
+      v[q] = interleaved ? reinterpret_cast<const float2*>(row)[s]
+                         : make_float2(row[s * elem_stride], row[plane_stride + s * elem_stride]);
     }
-    s_re[i] = vr;
-    s_im[i] = vi;
   }
-  for (int j = threadIdx.x; j < k; j += kThreads) s_tpl[j] = tpl[j];
+#pragma unroll
+  for (int q = 0; q < kStagePerThread; ++q) {
+    const int i = threadIdx.x + q * kCorrThreads;
+    if (i < n_stage) {
+      s_re[i + i / L] = v[q].x;
+      s_im[i + i / L] = v[q].y;
+    }
+  }
+  // taps past K are zero and never used (tap_group's n stops at K)
+  float* wr = reinterpret_cast<float*>(s_wr);
+  float* wi = reinterpret_cast<float*>(s_wi);
+  for (int j = threadIdx.x; j < kTapSlots; j += kCorrThreads) {
+    const float2 w = j < k ? tpl[j] : make_float2(0.f, 0.f);
+    wr[j] = w.x;
+    wi[j] = w.y;
+  }
   __syncthreads();
 
   unsigned long long best = 0ull;
+  const int first = lag0 + threadIdx.x * L;     // this thread's lags: first + 0..L-1
+  if (first < lag_bound) {
+    const float* pr = s_re + threadIdx.x * (L + 1);
+    const float* pi = s_im + threadIdx.x * (L + 1);
+    float xr[L], xi[L], cr[L], ci[L];
 #pragma unroll
-  for (int q = 0; q < kLagsPerBlock / kThreads; ++q) {
-    const int l = threadIdx.x + q * kThreads;   // neighbouring threads, neighbouring lags
-    const int lag = lag0 + l;
-    if (lag < lag_bound) {
-      float cr = 0.f, ci = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const float xr = s_re[l + j];
-        const float xi = s_im[l + j];
-        const float2 w = s_tpl[j];
-        if (kRealTemplate) {
-          cr = fmaf(xr, w.x, cr);
-          ci = fmaf(xi, w.x, ci);
-        } else {                                // (xr + j xi) * (w.x - j w.y)
-          cr = fmaf(xr, w.x, fmaf(xi, w.y, cr));
-          ci = fmaf(xi, w.x, fmaf(-xr, w.y, ci));
-        }
+    for (int q = 0; q < L; ++q) {
+      xr[q] = pr[q];
+      xi[q] = pi[q];
+      cr[q] = 0.f;
+      ci[q] = 0.f;
+    }
+    int j0 = 0;
+    for (; j0 + L <= k; j0 += L, pr += L + 1, pi += L + 1) {
+      tap_group<kRealTemplate>(pr, pi, s_wr, s_wi, j0, L, xr, xi, cr, ci);
+    }
+    if (j0 < k) tap_group<kRealTemplate>(pr, pi, s_wr, s_wi, j0, k - j0, xr, xi, cr, ci);
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      if (first + i < lag_bound) {
+        best = umax64(best, pack_key(fmaf(cr[i], cr[i], ci[i] * ci[i]), first + i));
       }
-      best = umax64(best, pack_key(fmaf(cr, cr, ci * ci), lag));
     }
   }
-  best = block_max(best, s_warp);
+  best = block_max<kCorrThreads>(best, s_warp);
   if (threadIdx.x == 0) partial[static_cast<long long>(r) * gridDim.y + blockIdx.y] = best;
 }
 
@@ -163,7 +270,7 @@ __device__ long long reduce_offset(const unsigned long long* __restrict__ keys,
   __shared__ int s_off;
   unsigned long long best = 0ull;
   for (int i = threadIdx.x; i < n_partial; i += kThreads) best = umax64(best, keys[i]);
-  best = block_max(best, s_warp);
+  best = block_max<kThreads>(best, s_warp);
   if (threadIdx.x == 0) {
     const unsigned lag = 0xFFFFFFFFu - static_cast<unsigned>(best & 0xFFFFFFFFull);
     const int raw = static_cast<int>(lag) - 1;
@@ -259,11 +366,11 @@ cudaError_t launch_corr(const float* src, long long row_stride,
                         cudaStream_t s) {
   const dim3 g1(rows, n_partial);
   if (real_template) {
-    corr_argmax_kernel<true><<<g1, kThreads, 0, s>>>(
+    corr_argmax_kernel<true><<<g1, kCorrThreads, 0, s>>>(
         src, row_stride, plane_stride, elem_stride, t,
         static_cast<const float2*>(tpl), k, lag_bound, keys);
   } else {
-    corr_argmax_kernel<false><<<g1, kThreads, 0, s>>>(
+    corr_argmax_kernel<false><<<g1, kCorrThreads, 0, s>>>(
         src, row_stride, plane_stride, elem_stride, t,
         static_cast<const float2*>(tpl), k, lag_bound, keys);
   }

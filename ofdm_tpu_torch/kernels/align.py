@@ -125,7 +125,11 @@ def sync_align_reference(flat: torch.Tensor, template, need: int,
 @lru_cache(maxsize=None)
 def sync_lib() -> ctypes.CDLL:
     """The ``csrc/sync_align.cu`` library (kernels 1, 3 and 4), loaded once."""
-    lib = _build.library("sync_align")
+    return declare_sync_lib(_build.library("sync_align"))
+
+
+def declare_sync_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a library built from ``csrc/sync_align.cu``."""
     lib.ofdm_sync_align_n_partial.restype = ctypes.c_int
     lib.ofdm_sync_align_n_partial.argtypes = [ctypes.c_int]
     lib.ofdm_sync_align.restype = ctypes.c_int

@@ -40,6 +40,7 @@ import torch
 
 from .. import constants
 from ..config import DEFAULT_CONFIG, FrameConfig
+from ..core import device as device_mod
 from ..kernels.align import pin_rowmajor, planar_align, sync_align
 from ..kernels.chain import sync_align_chunked
 from ..kernels.demod import eq_demod_pack
@@ -484,7 +485,7 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
 
 def decode(samples, guard_bands: bool = False,
            modulation: Modulation = Modulation.BPSK,
-           cfg: FrameConfig = DEFAULT_CONFIG) -> np.ndarray:
+           cfg: FrameConfig = DEFAULT_CONFIG, device=None) -> np.ndarray:
     """Reference-parity decode of one 1-D stream (src/receiver.rs:8-96):
     returns the payload bytes as a numpy uint8 array.
 
@@ -495,11 +496,12 @@ def decode(samples, guard_bands: bool = False,
     Templates of at most 128 taps sync and align in one ``sync_align`` call;
     longer ones sync with the conv correlation and align with
     ``planar_align``.  Raises DecodeError where the reference bails out on
-    short input.  ``samples``: a 1-D complex tensor (its device is used) or
-    array.
+    short input.  ``samples``: a 1-D complex tensor or array, decoded on
+    ``device``: a tensor's own device when None, else CUDA for an array
+    (raises where CUDA is absent; pass ``device="cpu"`` to run on the CPU).
     """
-    x = samples if isinstance(samples, torch.Tensor) \
-        else torch.as_tensor(np.asarray(samples))
+    x = device_mod.place(samples, device) if isinstance(samples, torch.Tensor) \
+        else torch.as_tensor(np.asarray(samples)).to(device_mod.resolve(device))
     if x.dim() != 1:
         raise ValueError("decode takes one 1-D stream")
     x = x.to(torch.complex64)

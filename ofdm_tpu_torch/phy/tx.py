@@ -19,6 +19,7 @@ import torch
 
 from .. import constants
 from ..config import DEFAULT_CONFIG, FrameConfig
+from ..core import device as device_mod
 from ..ops.fft import device_table, dft_matmul, idft_matmul_rows_cp
 from ..packets.header import Header
 from .modulation import (BITS_PER_SYMBOL, Modulation, _pad_last,
@@ -133,18 +134,23 @@ def encode_payload(payload: torch.Tensor, *, guard_bands: bool = False,
 def encode(data, guard_bands: bool = False,
            modulation: Modulation = Modulation.BPSK,
            cfg: FrameConfig = DEFAULT_CONFIG,
-           dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+           dtype: torch.dtype = torch.complex64,
+           device=None) -> torch.Tensor:
     """Reference-parity entry point (src/transmitter.rs:11-58).
 
-    ``data``: bytes | uint8 array [L] or [B, L] | uint8 tensor (its device is
-    kept).  Returns complex[(B,) T] with the length header prepended.
+    ``data``: bytes | uint8 array [L] or [B, L] | uint8 tensor.  Returns
+    complex[(B,) T] with the length header prepended, on ``device``: a
+    tensor's own device when None, else CUDA for bytes and arrays (raises
+    where CUDA is absent; pass ``device="cpu"`` to run on the CPU).
     """
     if isinstance(data, torch.Tensor):
-        arr = data.to(torch.uint8)
-    elif isinstance(data, (bytes, bytearray)):
-        arr = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        arr = device_mod.place(data, device).to(torch.uint8)
     else:
-        arr = torch.as_tensor(np.asarray(data, dtype=np.uint8))
+        if isinstance(data, (bytes, bytearray)):
+            host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        else:
+            host = torch.as_tensor(np.asarray(data, dtype=np.uint8))
+        arr = host.to(device_mod.resolve(device))
     header = torch.frombuffer(bytearray(Header(arr.shape[-1]).to_bytes()),
                               dtype=torch.uint8).to(arr.device)
     header = header.expand(*arr.shape[:-1], header.shape[0])

@@ -37,6 +37,8 @@ torch.set_num_threads(1)
 import ofdm_tpu_torch as ott
 data = torch.arange(64, dtype=torch.uint8)
 tx = ott.encode(data, guard_bands=True, modulation=ott.Modulation.QAM16)
+assert torch.equal(ott.encode(bytes(range(64)), guard_bands=True,
+                              modulation=ott.Modulation.QAM16, device="cpu"), tx)
 rx = ott.channel(tx, snr=40.0, timing_error=True,
                  generator=torch.Generator().manual_seed(1))
 nb = ott.n_data_blocks(64, ott.Modulation.QAM16, True)

@@ -98,6 +98,66 @@ def test_sync_align_reference_search_window_matches_pallas():
     assert (raw_all.numpy() == 1499).all()
 
 
+K1_EDGES = ["1 tap", "128 taps real", "128 taps complex", "lag_bound 2,051",
+            "T=700", "ties real", "ties complex"]
+
+
+def _tie_stream(tpl, t, lag_bound):
+    """Integer rows whose peak power ties exactly between two lags, as every
+    correlation sum is exact in any order: row 0 holds the template at the
+    first and the last lag of the scan, row 1 is all zeros (every lag ties),
+    row 2 holds it at lag 5 and the last lag, row 3 at the last lag with a
+    louder copy past the scan.  Returns (rows, first peak lag per row)."""
+    k, last = len(tpl), lag_bound - 1
+    s = np.zeros((4, t), np.complex64)
+    for row, lag, scale in ((0, 0, 1), (0, last, 1), (2, 5, 1), (2, last, 1),
+                            (3, last, 1), (3, t - k, 2)):
+        s[row, lag:lag + k] += scale * tpl
+    return s, [0, 0, 5, last]
+
+
+def _k1_edge(name):
+    """(stream [R, T], template, need, search_window, first peak lag per
+    row) at an edge of the kernel's correlation pass, which gives each
+    thread 8 consecutive lags and each block 1,024."""
+    rng = np.random.default_rng(21)
+    t, need, win, delays, tpl = T, NEED, None, DELAYS, TPL
+    if name == "1 tap":
+        tpl, need = np.ones(1, np.complex64), 1000
+        delays = [0, 1, 7, 8, 1023, 1024, 2048, 2559]
+    elif name.startswith("128 taps"):
+        tpl = rng.standard_normal(128) + (
+            1j * rng.standard_normal(128) if name.endswith("complex") else 0)
+        tpl = (tpl / np.abs(tpl).max()).astype(np.complex64)
+    elif name == "lag_bound 2,051":       # 1,971 + 80: 3 lags into block 3
+        t, need, win = 3000, 1000, 1971
+        delays = [0, 7, 1023, 1024, 2047, 2048, 2049, 2050]
+    elif name == "T=700":                 # shorter than one block
+        t, need, delays = 700, 600, [0, 1, 99, 100, 620, 300, 50, 10]
+    else:
+        tpl = rng.choice([-2.0, -1.0, 1.0, 2.0], 80).astype(np.complex64)
+        if name.endswith("complex"):
+            tpl = (tpl + 1j * rng.choice([-1.0, 1.0], 80)).astype(np.complex64)
+        s, first = _tie_stream(tpl, 3000, 1971 + 80)
+        return s, tpl, 1000, 1971, first
+    s = 0.01 * (rng.standard_normal((len(delays), t))
+                + 1j * rng.standard_normal((len(delays), t)))
+    for i, d in enumerate(delays):
+        s[i, d:d + len(tpl)] += tpl
+    return s.astype(np.complex64), tpl, need, win, delays
+
+
+@pytest.mark.parametrize("name", K1_EDGES)
+def test_sync_align_reference_edges_match_pallas(name):
+    s, tpl, need, win, first = _k1_edge(name)
+    want = np.asarray(_pallas()[0].sync_align(s, tpl, need, interpret=True,
+                                              search_window=win))
+    got, raw = sync_align_reference(torch.as_tensor(s), tpl, need,
+                                    search_window=win)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(first) - 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_sync_align_on_cpu_runs_the_plain_version():
     x = torch.as_tensor(_stream(TPL))
     before = sync_align.launches
@@ -234,6 +294,44 @@ def test_eq_demod_pack_block_table():
                       torch.as_tensor(h), fd, blocks=blocks.long(), **kw)
 
 
+def _block_table_case(mod, guard_bands, dev="cpu"):
+    """Planes whose blocks sit in a shuffled order, the table that reads 15
+    of them back in order, and the same 15 blocks laid out in order."""
+    y, h, nd, n_pilots, _ = _tail_case(mod, guard_bands, seed=4)
+    perm = np.random.default_rng(5).permutation(y.shape[1])
+    shuffled = np.empty_like(y)
+    shuffled[:, perm] = y                  # block c now sits at perm[c]
+    nbins = y.shape[-1]
+    packed = torch.as_tensor(np.concatenate([shuffled.real, shuffled.imag], -1)).to(dev)
+    ordered = torch.as_tensor(np.concatenate([y.real, y.imag], -1))[:, :15] \
+        .contiguous().to(dev)
+    rest = (torch.as_tensor(h).to(dev), torch.full((len(y),), 0.002, device=dev))
+    kw = dict(n_data=nd, n_pilots=n_pilots, modulation=mod, cfg=DEFAULT_CONFIG)
+    blocks = torch.as_tensor(perm[:15], dtype=torch.int32).to(dev)
+    return ((packed[..., :nbins], packed[..., nbins:], *rest),
+            (ordered[..., :nbins], ordered[..., nbins:], *rest), blocks, kw)
+
+
+@pytest.mark.parametrize("mod,guard_bands", TAIL_CASES,
+                         ids=lambda v: getattr(v, "value", str(v)))
+def test_eq_demod_pack_block_table_every_modulation(mod, guard_bands):
+    args, ordered, blocks, kw = _block_table_case(mod, guard_bands)
+    got = eq_demod_pack(*args, blocks=blocks, **kw)
+    assert torch.equal(got, eq_demod_pack_reference(*ordered, **kw))
+
+
+@pytest.mark.parametrize("mod", [Modulation.QAM64, Modulation.QPSK],
+                         ids=lambda m: m.value)
+def test_eq_demod_pack_reference_guard_bands_without_pilots(mod):
+    """n_pilots = 0 on planes that still carry the pilot bins: the plain
+    version reads the data bins alone, as the Pallas kernel does on planes
+    cut to them."""
+    y, h, nd, _, _ = _tail_case(mod, True, seed=7)
+    want = _pallas_tail(y[..., :nd], h[..., :nd], nd, 0, mod)
+    got = _port_tail(y, h, np.zeros(len(y), np.float32), nd, 0, mod)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_new_wrappers_on_cpu_run_the_plain_versions():
     x = torch.as_tensor(_stream(TPL))
     before = (planar_align.launches, pin_rowmajor.launches,
@@ -360,5 +458,48 @@ def test_eq_demod_pack_block_table_kernel_matches_plain():
             torch.full((len(y),), 0.01, device=dev))
     kw = dict(n_data=nd, n_pilots=n_pilots, modulation=Modulation.QAM64,
               cfg=DEFAULT_CONFIG, blocks=blocks)
+    assert torch.equal(eq_demod_pack(*args, **kw),
+                       eq_demod_pack_reference(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K1_EDGES)
+def test_sync_align_kernel_edges_match_plain(name):
+    """Covered on the card by chip_smoke.py phase 2's edge cases."""
+    dev = _cuda()
+    s, tpl, need, win, first = _k1_edge(name)
+    for planar_in in (False, True):
+        x = _as_input(s, planar_in).to(dev)
+        for planar in (False, True):
+            got, raw = sync_align(x, tpl, need, search_window=win, planar=planar)
+            ref, raw_ref = sync_align_reference(x, tpl, need, search_window=win,
+                                                planar=planar)
+            assert torch.equal(raw, raw_ref) and torch.equal(got, ref)
+            assert raw.tolist() == [f - 1 for f in first]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mod,guard_bands", TAIL_CASES,
+                         ids=lambda v: getattr(v, "value", str(v)))
+def test_eq_demod_pack_block_table_every_modulation_kernel(mod, guard_bands):
+    """Covered on the card by chip_smoke.py phase 3."""
+    args, ordered, blocks, kw = _block_table_case(mod, guard_bands, _cuda())
+    got = eq_demod_pack(*args, blocks=blocks, **kw)
+    assert torch.equal(got, eq_demod_pack_reference(*args, blocks=blocks, **kw))
+    assert torch.equal(got, eq_demod_pack_reference(*ordered, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mod", [Modulation.QAM64, Modulation.QPSK],
+                         ids=lambda m: m.value)
+def test_eq_demod_pack_kernel_guard_bands_without_pilots(mod):
+    """Covered on the card by chip_smoke.py phase 3."""
+    dev = _cuda()
+    y, h, nd, _, _ = _tail_case(mod, True, seed=7)
+    packed = torch.as_tensor(np.concatenate([y.real, y.imag], -1)).to(dev)
+    nbins = y.shape[-1]
+    args = (packed[..., :nbins], packed[..., nbins:], torch.as_tensor(h).to(dev),
+            torch.full((len(y),), 0.01, device=dev))
+    kw = dict(n_data=nd, n_pilots=0, modulation=mod, cfg=DEFAULT_CONFIG)
     assert torch.equal(eq_demod_pack(*args, **kw),
                        eq_demod_pack_reference(*args, **kw))

@@ -123,7 +123,8 @@ def test_decode_golden_frames(mod):
     tx = np.load(os.path.join(GOLDEN_DIR, "tx_frames.npz"))[f"tx_{mod.value}_gb1"]
     delayed = np.concatenate([np.zeros(7, tx.dtype), tx])
     out = ott.decode(delayed, guard_bands=True,
-                     modulation=convert.modulation_from_reference(mod))
+                     modulation=convert.modulation_from_reference(mod),
+                     device="cpu")
     np.testing.assert_array_equal(out, np.arange(200, dtype=np.uint8))
 
 
@@ -145,7 +146,7 @@ def test_decode_raises_on_short_stream(n):
 
 def test_decode_raises_when_the_frame_starts_too_late():
     tx = ott.encode(bytes(range(40)), guard_bands=True,
-                    modulation=ott.Modulation.QPSK)
+                    modulation=ott.Modulation.QPSK, device="cpu")
     late = torch.cat([torch.zeros(1000, dtype=tx.dtype), tx[:700]])
     with pytest.raises(ott.DecodeError, match="not long enough"):
         ott.decode(late, guard_bands=True, modulation=ott.Modulation.QPSK)

@@ -38,7 +38,8 @@ def test_encode_matches_jax_complex64(scheme, gb):
     want = np.asarray(ot.encode(data, guard_bands=gb, modulation=scheme,
                               dtype=jnp.complex64))
     got = ott.encode(data, guard_bands=gb,
-                     modulation=convert.modulation_from_reference(scheme)).numpy()
+                     modulation=convert.modulation_from_reference(scheme),
+                     device="cpu").numpy()
     assert got.dtype == np.complex64 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
@@ -48,7 +49,7 @@ def test_encode_matches_jax_complex64(scheme, gb):
 def test_encode_complex128_matches_golden(golden, scheme, gb):
     got = ott.encode(np.arange(200, dtype=np.uint8), guard_bands=gb,
                      modulation=convert.modulation_from_reference(scheme),
-                     dtype=torch.complex128).numpy()
+                     dtype=torch.complex128, device="cpu").numpy()
     want = golden[f"tx_{scheme.value}_gb{int(gb)}"]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
@@ -56,7 +57,8 @@ def test_encode_complex128_matches_golden(golden, scheme, gb):
 
 def test_encode_accepts_bytes_and_tensors():
     payload = bytes(range(40))
-    a = ott.encode(payload, guard_bands=True, modulation=ott.Modulation.QPSK)
+    a = ott.encode(payload, guard_bands=True, modulation=ott.Modulation.QPSK,
+                   device="cpu")
     b = ott.encode(torch.arange(40, dtype=torch.uint8), guard_bands=True,
                    modulation=ott.Modulation.QPSK)
     assert torch.equal(a, b)
