@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per source, all
-at once) and runs eight phases:
+at once) and runs eleven phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -41,10 +41,32 @@ at once) and runs eight phases:
      chunks) through decode_frame (K3 + K2) and decode on one row;
   8. timing: decode_frame ms/step per route (CUDA events) and its device
      busy time, and the device time per call of K3, K4 and K5 beside their
-     plain versions' and, for K5, beside ``x.contiguous()``.  The
-     ``kernels`` line carries phases 5 and 8 and each kernel's bound: the
-     larger of its flops at the fp32 peak and its bytes at the memory rate,
-     from this run's shapes.
+     plain versions' and beside the one PyTorch call that computes the same
+     function (K3: one advanced-indexing gather; K5: ``x.contiguous()``).
+     The ``kernels`` line carries phases 5 and 8 and each kernel's bound:
+     the larger of its flops at the fp32 peak and its bytes at the memory
+     rate, from this run's shapes;
+  9. stream decoding at bench.py's config 4: 256 Hamming(7,4) frames of
+     4,680 user bytes (QAM64, guard bands, 19,040 samples each) back to
+     back in one 4,874,320-sample stream, made on the card (encode_hamming,
+     channel at SNR 45).  decode_regular presync and resync, on the complex
+     stream and on the planar [2, T] stream with all three presync
+     handoffs: 0 byte errors, the same bytes on every route, exact launch
+     counts (presync K3 1 + K2 1, resync K3 1 + K1 1 + K2 1) and one
+     synchronizing call per decode (the output fetch, by
+     torch.cuda.set_sync_debug_mode).  Then the short-buffer stream of
+     fault F1 (first frame at 523, spacing 19,240, cut at the last frame's
+     end as received): 0 byte errors presync and resync.  K3's shared-stream mode is
+     held against its plain version in phase 6;
+ 10. decode_burst on 64 such frames at random gaps of 300-2,200 samples
+     (SNR 25, with CFO): every frame found within 2 samples of its start,
+     0 byte errors, launches K3 1 + K2 1; decode_continuous on its first 8
+     frames: the same positions and bytes, K1 8 + K2 8;
+ 11. timing of decode_regular (CUDA events, median of 30 steps, each
+     ending in its output fetch) presync and resync on both stream forms,
+     its device busy time, idle share and top device items; the device
+     launches per step and the eager Hamming decode's share of them; and
+     K3's shared-stream cut beside its plain version and its bound.
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
@@ -60,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -69,6 +92,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import ofdm_tpu_torch as ott  # noqa: E402
 from ofdm_tpu_torch import constants  # noqa: E402
+from ofdm_tpu_torch.fec import hamming  # noqa: E402
 from ofdm_tpu_torch.kernels import _build  # noqa: E402
 from ofdm_tpu_torch.kernels.align import (pin_rowmajor,  # noqa: E402
                                           pin_rowmajor_reference, planar_align,
@@ -78,6 +102,7 @@ from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
+from ofdm_tpu_torch.phy.streaming import coded_len  # noqa: E402
 from ofdm_tpu_torch.phy.modulation import (BITS_PER_SYMBOL,  # noqa: E402
                                             modulate_bytes_packed)
 
@@ -87,6 +112,10 @@ MOD = ott.Modulation.QAM64
 SNR = 45.0
 REPS = 30
 SEED = 0
+# config 4 of bench.py: Hamming-coded stream decoding
+HAM_FRAMES = 256
+HAM_BYTES = 4680
+BURST_FRAMES = 64
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -383,6 +412,189 @@ def with_cfo(rx: torch.Tensor, gen, sym_len: int) -> torch.Tensor:
     return rx * torch.polar(torch.ones_like(f[:, None] * n), f[:, None] * n)
 
 
+def host_syncs(fn):
+    """Run ``fn`` under torch.cuda.set_sync_debug_mode("warn"); return its
+    result and the number of synchronizing CUDA calls it made."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def device_launches(fn) -> int:
+    """Kernel launches and copies one call of ``fn`` puts on the device
+    (torch.profiler, one session after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def ham_frames(gen, dev, n: int):
+    """(user bytes [n, HAM_BYTES], frames [n, 19,040]): Hamming(7,4)-coded,
+    QAM64, guard bands, made on the card."""
+    data = torch.randint(0, 256, (n, HAM_BYTES), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    return data, ott.encode_hamming(data, guard_bands=True, modulation=MOD)
+
+
+def phase_streaming(gen, dev, name_limit: str) -> None:
+    """Phases 9-11: stream decoding at config 4 (see the module docstring)."""
+    cfg = ott.DEFAULT_CONFIG
+    plen = coded_len(HAM_BYTES, "hamming")
+    nb = ott.n_data_blocks(plen, MOD, True)
+    flen = cfg.sync_len + nb * cfg.sym_len
+    check((plen, nb, flen) == (8190, 228, 19040), f"config 4 geometry {plen, nb, flen}")
+    data, tx = ham_frames(gen, dev, HAM_FRAMES)
+    want = data.cpu().numpy()
+    need = HAM_FRAMES * flen + cfg.sym_len           # bench.py's stream length
+    s = pad_rows(ott.channel(tx.reshape(-1), snr=SNR, generator=gen)[None],
+                 need)[0, :need]
+    planes = torch.stack([s.real, s.imag])
+    kw = dict(n_frames=HAM_FRAMES, spacing=flen, payload_len=plen,
+              guard_bands=True, modulation=MOD, fec="hamming", data_len=HAM_BYTES)
+    presync = launches(planar_align=1, eq_demod_pack=1)
+    resync = launches(planar_align=1, sync_align=1, eq_demod_pack=1)
+    routes = [("complex presync", s, dict(resync=False), presync),
+              ("complex resync", s, dict(resync=True), resync)]
+    routes += [(f"planar presync, handoff {h}", planes,
+                dict(resync=False, planar_handoff=h), presync)
+               for h in ("planar", "complex", "split")]
+    routes.append(("planar resync", planes, dict(resync=True), resync))
+
+    def gate(label, x, n_frames, spacing, extra, n_want, ref):
+        (p, ok), n = counted(lambda: ott.decode_regular(
+            x, **dict(kw, n_frames=n_frames, spacing=spacing), **extra))
+        check(n == n_want, f"decode_regular {label} launched {n}, want {n_want}")
+        errs = int((p != ref).sum())
+        check(p.shape == ref.shape and errs == 0 and ok.all(),
+              f"decode_regular {label}: {errs} byte errors")
+        return p, n
+
+    first_out = None
+    for label, x, extra, n_want in routes:
+        p, n = gate(label, x, HAM_FRAMES, flen, extra, n_want, want)
+        first_out = p if first_out is None else first_out
+        check(np.array_equal(p, first_out), f"decode_regular {label}: bytes "
+              "differ from complex presync's")
+        _, n_sync = host_syncs(lambda: ott.decode_regular(x, **kw, **extra))
+        check(n_sync == 1, f"decode_regular {label}: {n_sync} synchronizing "
+              "calls, want 1 (the output fetch)")
+        print(f"phase 9 decode_regular {label}: {HAM_FRAMES} x {HAM_BYTES} B "
+              f"Hamming QAM64, T={need}: 0 byte errors, bytes equal on every "
+              f"route, launches {n}, synchronizing calls {n_sync}")
+
+    # F1: the first frame at 523, 200 samples between frames, the stream
+    # cut where the last frame ends as received (the channel's main tap
+    # delays it); the JAX package's slice would overrun that end by
+    # 200 - delay > sym_len samples and clamp its start
+    delay = int(np.argmax(np.abs(constants.CHANNEL_TAPS)))
+    spacing1, first1 = flen + 200, 523
+    t1 = first1 + (HAM_FRAMES - 1) * spacing1 + flen + delay
+    body = torch.zeros(first1 + HAM_FRAMES * spacing1, dtype=torch.complex64,
+                       device=dev)
+    body[first1:].view(HAM_FRAMES, spacing1)[:, :flen] = tx
+    s1 = ott.channel(body, snr=SNR, generator=gen)[:t1]
+    for label, extra, n_want in (("presync", dict(resync=False), presync),
+                                 ("resync", dict(resync=True), resync)):
+        _, n = gate(f"F1 stream {label}", s1, HAM_FRAMES, spacing1, extra,
+                    n_want, want)
+        print(f"phase 9 F1 stream (first {first1}, spacing {spacing1}, T={t1}) "
+              f"{label}: 0 byte errors, launches {n}")
+
+    # phase 10: decode_burst, then decode_continuous on its first 8 frames
+    bdata, btx = ham_frames(gen, dev, BURST_FRAMES)
+    gaps = torch.randint(300, 2201, (BURST_FRAMES,), generator=gen,
+                         device=dev).tolist()
+    parts, starts, pos = [], [], 0
+    for i, g in enumerate(gaps):
+        parts += [torch.zeros(g, dtype=torch.complex64, device=dev), btx[i]]
+        starts.append(pos + g)
+        pos += g + flen
+    # the channel draws its CFO first; take the first seed whose CFO lies
+    # below 0.8 pi / 80, inside the preamble estimator's range
+    seed = next(k for k in range(100) if float(torch.rand(
+        (), generator=torch.Generator(dev).manual_seed(k), device=dev)) < 0.8)
+    bs = ott.channel(torch.cat(parts), snr=25.0, timing_error=True,
+                     generator=torch.Generator(dev).manual_seed(seed))
+    bkw = dict(payload_len=plen, guard_bands=True, modulation=MOD, fec="hamming",
+               data_len=HAM_BYTES)
+    found, n_burst = counted(lambda: ott.decode_burst(bs, **bkw))
+    check(n_burst == launches(planar_align=1, eq_demod_pack=1),
+          f"decode_burst launched {n_burst}")
+    check(len(found) == BURST_FRAMES, f"decode_burst found {len(found)} frames")
+    bwant = bdata.cpu().numpy()
+    for (p, d, ok), st, w in zip(found, starts, bwant):
+        check(abs(p - (st + delay)) <= 2, f"decode_burst: frame at {p}, sent at "
+              f"{st} + the channel's {delay}-sample delay")
+        check(ok and np.array_equal(d, w), f"decode_burst: frame at {p} has "
+              f"{int((d != w).sum())} byte errors")
+    _, n_bsync = host_syncs(lambda: ott.decode_burst(bs, **bkw))
+    print(f"phase 10 decode_burst: {BURST_FRAMES} frames in T={bs.shape[0]} "
+          f"(SNR 25, CFO, channel seed {seed}): all found within 2 samples, "
+          f"0 byte errors; launches {n_burst}; synchronizing calls {n_bsync}")
+    cont, n_cont = counted(
+        lambda: list(ott.decode_continuous(bs, max_frames=8, **bkw)))
+    check(n_cont == launches(sync_align=8, eq_demod_pack=8),
+          f"decode_continuous launched {n_cont}")
+    check([c[0] for c in cont] == [f[0] for f in found[:8]]
+          and all(np.array_equal(c[1], f[1]) for c, f in zip(cont, found)),
+          "decode_continuous differs from decode_burst")
+    print(f"phase 10 decode_continuous, first 8 frames: decode_burst's positions "
+          f"and bytes; launches {n_cont}")
+
+    # phase 11: timing
+    n_samples = HAM_FRAMES * flen
+    print(f"phase 11 decode_regular per step on {name_limit} ({HAM_FRAMES} x "
+          f"{flen}-sample frames, CUDA events median of {REPS}, each step "
+          "ending in its output fetch; device busy from torch.profiler):")
+    for label, x, extra in (("complex presync", s, dict(resync=False)),
+                            ("complex resync", s, dict(resync=True)),
+                            ("planar presync", planes, dict(resync=False)),
+                            ("planar resync", planes, dict(resync=True))):
+        def step(x=x, extra=extra):
+            return ott.decode_regular(x, **kw, **extra)
+        ms = time_ms(step)
+        dk = device_ms(step)
+        busy = sum(dk.values())
+        print(f"  {ms:.4f} ms/step, {n_samples / ms * 1e3:.4e} samples/s, busy "
+              f"{busy:.4f} ms, idle share {1 - busy / ms:.3f}  {label} on "
+              f"{name_limit}; top device items:")
+        for kname, kms in sorted(dk.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {kms:.4f}  {kname[:100]}")
+    # where the host time goes: the device work each step launches, and
+    # the eager Hamming decode alone on the step's payload bytes
+    step = lambda: ott.decode_regular(s, **kw, resync=False)   # noqa: E731
+    payload = ott.decode_frame(s[:flen * HAM_FRAMES].view(HAM_FRAMES, flen),
+                               n_blocks=nb, guard_bands=True,
+                               modulation=MOD)[:, 16:16 + plen]
+    ham = lambda: hamming.decode(payload, HAM_BYTES)          # noqa: E731
+    ham_ms = time_ms(ham)
+    ham_busy = sum(device_ms(ham).values())
+    print(f"phase 11 host: complex presync puts {device_launches(step)} kernels "
+          f"and copies on the device per step; the Hamming decode alone "
+          f"{device_launches(ham)} kernels, {ham_ms:.4f} ms per call (CUDA "
+          f"events), busy {ham_busy:.4f} ms, on {name_limit}")
+    offs = torch.arange(HAM_FRAMES, device=dev) * flen
+    k3 = sum(device_ms(lambda: planar_align(s, offs, flen, planar=True)).values())
+    k3_plain = sum(device_ms(
+        lambda: planar_align_reference(s, offs, flen, planar=True)).values())
+    k3_bound, _ = bound(0, 2 * HAM_FRAMES * flen * 8 + HAM_FRAMES * 8)
+    print(f"phase 11 planar_align shared stream ({HAM_FRAMES} rows of {flen} "
+          f"from T={need}): {k3:.4f} ms/call, plain {k3_plain:.4f}, bound "
+          f"{k3_bound:.4f} (bytes), share {k3_bound / k3:.3f} on {name_limit}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
@@ -523,6 +735,27 @@ def main() -> None:
                   f"{planar}: differs from plain by {diff}")
     print(f"phase 6 planar_align: R={BATCH} T={t} need={need}, offsets 0..T-need "
           "(0 and T-need included), complex and planar in and out: identical")
+    # shared-stream mode: the rows flattened into one stream, every row
+    # reading it; the last rows run past its end, the very last starts past it
+    stream = rx_clean.reshape(-1)
+    t_s = stream.shape[0]
+    s_offs = (torch.arange(BATCH, device=dev) * t
+              + torch.randint(0, 200, (BATCH,), generator=gen, device=dev))
+    s_offs[-3:] = torch.tensor([t_s - need // 2, t_s - 1, t_s + 5], device=dev)
+    for name, x in (("complex [T]", stream),
+                    ("planar [2, T]", torch.stack([stream.real, stream.imag])),
+                    ("strided planar view", torch.view_as_real(stream).t())):
+        for planar in (False, True):
+            got = planar_align(x, s_offs, need, planar=planar)
+            ref = planar_align_reference(x, s_offs, need, planar=planar)
+            torch.cuda.synchronize()
+            diff = (got - ref).abs().max().item()
+            k3_err = max(k3_err, diff)
+            check(torch.equal(got, ref), f"planar_align shared {name}, planar="
+                  f"{planar}: differs from plain by {diff}")
+    print(f"phase 6 planar_align shared stream: T={t_s}, {BATCH} rows of {need}, "
+          "3 of them past the end (read as 0), complex, planar and strided "
+          "planar stream, complex and planar out: identical")
     n_chunks = ott.DEFAULT_CONFIG.n_sync_chunks + nb
     for name, x in (("complex clean", rx_clean), ("planar clean", planes_in),
                     ("complex CFO", rx_cfo)):
@@ -648,8 +881,20 @@ def main() -> None:
         ("pin_rowmajor", lambda: pin_rowmajor(view)),
         ("pin_rowmajor plain", lambda: pin_rowmajor_reference(view))])
 
-    # the one PyTorch call that computes a kernel's function: K5's alone
-    time_kernels(8, [("pin_rowmajor library", lambda: view.contiguous())])
+    # the one PyTorch call that computes each kernel's function, where one
+    # exists: K3's windows as one advanced-indexing gather of the complex
+    # rows' float view into [R, 2, need] (the index built outside the
+    # timed call), K5's copy as x.contiguous()
+    g_rows = torch.arange(BATCH, device=dev)[:, None, None]
+    g_idx = (offs[:, None].long() + torch.arange(need, device=dev))[:, None, :]
+    g_plane = torch.arange(2, device=dev)[None, :, None]
+    rx_view = torch.view_as_real(rx_clean)
+    check(torch.equal(rx_view[g_rows, g_idx, g_plane],
+                      planar_align(rx_clean, offs, need, planar=True)),
+          "the indexing call differs from planar_align")
+    time_kernels(8, [("planar_align library",
+                      lambda: rx_view[g_rows, g_idx, g_plane]),
+                     ("pin_rowmajor library", lambda: view.contiguous())])
 
     # bounds from this run's shapes: each input read once, each output
     # written once; the correlation's FMAs (2 flops, 2 planes, 2 per
@@ -699,6 +944,7 @@ def main() -> None:
               "ofdm_tpu/kernels/align_pallas.py:237",
               n_view["pin_rowmajor"], k5_err),
     ]
+    phase_streaming(gen, dev, name_limit)
     for e in kernels:
         print(f"kernel {e['name']}: {e['ms']:.4f} ms/call, bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}), roofline share "

@@ -4,7 +4,8 @@ kernels written for the NVIDIA H100 (sm_90a).
 It imports torch and numpy, never jax: it runs where the JAX package is
 absent, and ``ofdm_tpu`` stays the reference it is tested against.  Module
 layout and names mirror ``ofdm_tpu``.  Functions take tensors and work on
-their device; ``encode`` and ``decode`` also take bytes or numpy arrays,
+their device; ``encode``, ``decode`` and the stream decoders also take
+bytes or numpy arrays,
 which they put on CUDA unless the caller passes ``device=`` (``"cpu"`` to
 run on the CPU).  Randomness comes from explicit ``torch.Generator``s.
 
@@ -16,14 +17,18 @@ to False first.  The kernels build with ``nvcc`` at first use into
 """
 
 from .config import DEFAULT_CONFIG, FrameConfig
+from .obs.analysis import Analysis
 from .phy.channel import channel
 from .phy.modulation import Modulation
 from .phy.rx import (DecodeError, decode, decode_aligned, decode_chunked_matrix,
                      decode_frame, decode_frame_planar, decode_planar_matrix,
                      sync_offset)
-from .phy.tx import encode, encode_payload, frame_len, n_data_blocks
+from .phy.streaming import decode_burst, decode_continuous, decode_regular
+from .phy.tx import (encode, encode_hamming, encode_payload, frame_len,
+                     n_data_blocks)
 
 __all__ = [
+    "Analysis",
     "DEFAULT_CONFIG",
     "DecodeError",
     "FrameConfig",
@@ -31,11 +36,15 @@ __all__ = [
     "channel",
     "decode",
     "decode_aligned",
+    "decode_burst",
     "decode_chunked_matrix",
+    "decode_continuous",
     "decode_frame",
     "decode_frame_planar",
     "decode_planar_matrix",
+    "decode_regular",
     "encode",
+    "encode_hamming",
     "encode_payload",
     "frame_len",
     "n_data_blocks",

@@ -8,6 +8,7 @@ that raises instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,11 @@ def place(x: torch.Tensor, device) -> torch.Tensor:
     """A tensor argument on ``device``, or on its own device when that is
     None."""
     return x if device is None else x.to(resolve(device))
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """A tensor kept on its own device (or moved to ``device``), or an array
+    put on ``device`` (CUDA when None)."""
+    if isinstance(x, torch.Tensor):
+        return place(x, device)
+    return torch.as_tensor(np.asarray(x)).to(resolve(device))

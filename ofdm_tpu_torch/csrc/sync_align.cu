@@ -17,7 +17,8 @@
 //   raw[r]  = (smallest lag among the maxima of power) - 1
 //   off     = clamp(raw[r], 0, max_off)
 //   K1: out[r]  = s[r, off : off + need]
-//   K3: out[r]  = s[r, offsets[r] : offsets[r] + need]   (offsets given, no sync)
+//   K3: out[r]  = s[r, offsets[r] : offsets[r] + need]   (offsets given, no sync;
+//       0 past T; with row stride 0 every row reads the one stream s[0, :])
 //   K4: out[r, slot, lane] = s[r, off + sym * chunk(slot) + lane] (0 past T),
 //       chunk(slot) = (slot % m_per) * n_cls + slot / m_per, 128 lanes
 //
@@ -65,8 +66,14 @@
 //   kernel 2 (window, K1; chunk, K4): grid (rows, copy blocks).  Each block
 //     reduces its row's keys (a second pass instead of atomics:
 //     deterministic, no memset), derives the offset and copies its share.
-//   K3 is kernel 2's copy with the offset read from an int32 array; it
-//     trusts the offsets to lie in [0, T - need] (the wrapper's callers clip).
+//   K3 is kernel 2's copy with the offset read from an int32 array, and
+//     zeros where a row reads at or past T.  The batched decode's callers
+//     clip its offsets to [0, T - need]; stream decoding gives it one
+//     stream (row stride 0) and the offsets first + i * spacing, so every
+//     frame of a capture is cut out of it in one launch, with no copy of
+//     the stream, no host round trip for `first` and no padding however
+//     far the last row runs past the end.  It trusts the offsets to be
+//     non-negative.
 //
 // Inputs and outputs are addressed through (row, plane, element) strides in
 // floats, so complex64 [R, T] (interleaved) and planar f32 [R, 2, T] share
@@ -281,25 +288,31 @@ __device__ long long reduce_offset(const unsigned long long* __restrict__ keys,
   return s_off;
 }
 
-// This block's share [begin, end) of a window copy: dst[i] = src[off + i].
+// This block's share [begin, end) of a window copy: dst[i] = src[off + i],
+// 0 where off + i >= t.
 __device__ __forceinline__ void copy_window(const float* __restrict__ src,
                                             long long plane_stride,
                                             long long elem_stride, long long off,
-                                            float* __restrict__ dst,
+                                            long long t, float* __restrict__ dst,
                                             long long out_plane, long long out_elem,
                                             int need) {
   const int begin = blockIdx.y * kCopyPerBlock;
   const int end = min(need, begin + kCopyPerBlock);
   for (int i = begin + threadIdx.x; i < end; i += kThreads) {
-    const long long s = (off + i) * elem_stride;
-    dst[i * out_elem] = src[s];
-    dst[out_plane + i * out_elem] = src[plane_stride + s];
+    float vr = 0.f, vi = 0.f;
+    if (off + i < t) {
+      const long long s = (off + i) * elem_stride;
+      vr = src[s];
+      vi = src[plane_stride + s];
+    }
+    dst[i * out_elem] = vr;
+    dst[out_plane + i * out_elem] = vi;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 window_kernel(const float* __restrict__ in, long long row_stride,
-              long long plane_stride, long long elem_stride,
+              long long plane_stride, long long elem_stride, int t,
               const unsigned long long* __restrict__ partial, int n_partial,
               int max_off, int need, int* __restrict__ raw_off,
               float* __restrict__ out, long long out_row, long long out_plane,
@@ -309,19 +322,19 @@ window_kernel(const float* __restrict__ in, long long row_stride,
       partial + static_cast<long long>(r) * n_partial, n_partial, max_off,
       blockIdx.y == 0 ? raw_off + r : nullptr);
   copy_window(in + static_cast<long long>(r) * row_stride, plane_stride,
-              elem_stride, off, out + static_cast<long long>(r) * out_row,
+              elem_stride, off, t, out + static_cast<long long>(r) * out_row,
               out_plane, out_elem, need);
 }
 
 __global__ void __launch_bounds__(kThreads)
 planar_align_kernel(const float* __restrict__ in, long long row_stride,
-                    long long plane_stride, long long elem_stride,
+                    long long plane_stride, long long elem_stride, long long t,
                     const int* __restrict__ offsets, int need,
                     float* __restrict__ out, long long out_row,
                     long long out_plane, long long out_elem) {
   const int r = blockIdx.x;
   copy_window(in + static_cast<long long>(r) * row_stride, plane_stride,
-              elem_stride, offsets[r], out + static_cast<long long>(r) * out_row,
+              elem_stride, offsets[r], t, out + static_cast<long long>(r) * out_row,
               out_plane, out_elem, need);
 }
 
@@ -411,26 +424,27 @@ extern "C" int ofdm_sync_align(const void* in, long long row_stride,
                               keys, s);
   if (e != cudaSuccess) return e;
   window_kernel<<<dim3(rows, n_copy), kThreads, 0, s>>>(
-      src, row_stride, plane_stride, elem_stride, keys, n_partial, max_off,
+      src, row_stride, plane_stride, elem_stride, t, keys, n_partial, max_off,
       need, static_cast<int*>(raw_off), static_cast<float*>(out), out_row,
       out_plane, out_elem);
   return cudaGetLastError();
 }
 
-// K3: row r of `out` gets `need` samples of row r of `in` from offsets[r]
-// (int32, trusted to lie in [0, T - need]).  Strides are in floats.
+// K3: row r of `out` gets `need` samples of row r of `in` (of the one
+// stream when row_stride is 0) from offsets[r] (int32, trusted to be >= 0),
+// 0 at and past sample t.  Strides are in floats.
 extern "C" int ofdm_planar_align(const void* in, long long row_stride,
                                  long long plane_stride, long long elem_stride,
-                                 int rows, const void* offsets, int need,
-                                 void* out, long long out_row,
+                                 int rows, long long t, const void* offsets,
+                                 int need, void* out, long long out_row,
                                  long long out_plane, long long out_elem,
                                  void* stream) {
-  if (rows <= 0 || need <= 0) return cudaErrorInvalidValue;
+  if (rows <= 0 || t <= 0 || need <= 0) return cudaErrorInvalidValue;
   const int n_copy = (need + kCopyPerBlock - 1) / kCopyPerBlock;
   if (n_copy > 65535) return cudaErrorInvalidValue;
   planar_align_kernel<<<dim3(rows, n_copy), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), row_stride, plane_stride, elem_stride,
+      static_cast<const float*>(in), row_stride, plane_stride, elem_stride, t,
       static_cast<const int*>(offsets), need, static_cast<float*>(out),
       out_row, out_plane, out_elem);
   return cudaGetLastError();

@@ -3,7 +3,8 @@ plain versions:
 
 - ``sync_align`` (kernel 1, ``csrc/sync_align.cu``): fused sync + window copy;
 - ``planar_align`` (kernel 3, same library): the window copy alone, at
-  offsets computed outside (the unfused route);
+  offsets computed outside (the unfused route), from rows or from one
+  shared stream (stream decoding);
 - ``pin_rowmajor`` (kernel 5, ``csrc/pin_rowmajor.cu``): a row-major copy of
   a strided view.
 
@@ -139,8 +140,9 @@ def declare_sync_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     lib.ofdm_planar_align.restype = ctypes.c_int
     lib.ofdm_planar_align.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p]
         + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     lib.ofdm_sync_align_chunked.restype = ctypes.c_int
     lib.ofdm_sync_align_chunked.argtypes = (
@@ -193,24 +195,64 @@ def sync_align(flat: torch.Tensor, template, need: int,
 sync_align.launches = 0
 
 
+def _is_stream(x: torch.Tensor) -> bool:
+    """True for one shared stream: complex64 [T] or f32 planes [2, T]."""
+    return (x.dtype == torch.complex64 and x.dim() == 1) or (
+        x.dtype == torch.float32 and x.dim() == 2 and x.shape[0] == 2)
+
+
 def _check_planar_align(flat: torch.Tensor, offsets: torch.Tensor,
                         need: int):
-    """Validate the arguments of ``planar_align``; return (rows, T)."""
-    r, t = check_input(flat, "planar_align")
+    """Validate the arguments of ``planar_align``; return (rows, T, the
+    input's (row, plane, element) strides in floats)."""
+    if _is_stream(flat):
+        t = flat.shape[-1]
+        r = offsets.shape[0] if offsets.dim() == 1 else -1
+        # row stride 0: every row reads the one stream, at any element stride
+        strides = (0, 1, 2 * flat.stride(0)) if flat.is_complex() \
+            else (0, *flat.stride())
+        if t < 1 or need < 1:
+            raise ValueError(f"planar_align needs T >= 1 and need >= 1, got "
+                             f"T={t}, need={need}")
+    else:
+        r, t = check_input(flat, "planar_align")
+        strides = window_strides(flat)
+        if not 0 < need <= t:
+            raise ValueError(f"need={need} must lie in [1, T={t}]")
     if offsets.shape != (r,) or offsets.dtype not in (torch.int32, torch.int64) \
             or offsets.device != flat.device:
         raise ValueError("offsets must be int32 or int64 [R] on the input's "
                          "device")
-    if not 0 < need <= t:
-        raise ValueError(f"need={need} must lie in [1, T={t}]")
-    return r, t
+    return r, t, strides
+
+
+def _gather_stream(stream: torch.Tensor, off: torch.Tensor, need: int,
+                   planar: bool) -> torch.Tensor:
+    """Row r = stream[off[r] : off[r] + need], 0 at and past T, from a
+    complex64 [T] or f32 [2, T] stream; complex64 [R, need] or f32 planes
+    [R, 2, need]."""
+    t = stream.shape[-1]
+    idx = off[:, None].long() + torch.arange(need, device=stream.device)
+    inside = idx < t
+    idx = idx.clamp(max=t - 1)
+    if stream.dim() == 1:
+        win = torch.where(inside, stream[idx], 0)                    # [R, need]
+        return torch.stack([win.real, win.imag], dim=1) if planar else win
+    win = torch.where(inside, stream[:, idx], 0)                     # [2, R, need]
+    return win.transpose(0, 1).contiguous() if planar \
+        else torch.complex(win[0], win[1])
 
 
 def planar_align_reference(flat: torch.Tensor, offsets: torch.Tensor,
                            need: int, planar: bool = False) -> torch.Tensor:
-    """Plain version of ``planar_align``: a gather, after checking that
-    every offset lies in [0, T - need] (the kernel trusts them)."""
-    r, t = _check_planar_align(flat, offsets, need)
+    """Plain version of ``planar_align``: a gather, after checking the
+    offsets the kernel trusts: every one in [0, T - need] for rows, and
+    non-negative for a shared stream (whose rows read 0 past T)."""
+    r, t, _ = _check_planar_align(flat, offsets, need)
+    if _is_stream(flat):
+        if r and not bool((offsets >= 0).all()):
+            raise ValueError("offsets into a stream must be >= 0")
+        return _gather_stream(flat, offsets, need, planar)
     if r and not bool(((offsets >= 0) & (offsets <= t - need)).all()):
         raise ValueError(f"offsets must lie in [0, T - need = {t - need}]")
     return _gather_windows(flat, offsets, need, planar)
@@ -221,9 +263,13 @@ def planar_align(flat: torch.Tensor, offsets: torch.Tensor, need: int,
     """Per-row window copy (kernel 3): row r holds
     ``flat[r, offsets[r] : offsets[r] + need]``.
 
-    flat: complex64 [R, T] or f32 planes [R, 2, T], contiguous.  offsets:
-    int [R], already clipped to [0, T - need] (``decode_frame`` clips; the
-    kernel reads them as they are).  Returns complex64 [R, need], or f32
+    flat: complex64 [R, T] or f32 planes [R, 2, T], contiguous, with
+    offsets already clipped to [0, T - need] (``decode_frame`` clips; the
+    kernel reads them as they are); or one shared stream, complex64 [T] or
+    f32 [2, T] of any strides, that every row reads (row stride 0), with
+    offsets >= 0 and samples at or past T read as 0 (stream decoding: every
+    frame of a capture in one launch, no copy or padding of the stream).
+    offsets: int32 or int64 [R].  Returns complex64 [R, need], or f32
     [R, 2, need] with ``planar=True``.
 
     A CPU tensor runs ``planar_align_reference``; a CUDA tensor launches the
@@ -233,14 +279,14 @@ def planar_align(flat: torch.Tensor, offsets: torch.Tensor, need: int,
         return planar_align_reference(flat, offsets, need, planar)
     if flat.device.type != "cuda":
         raise ValueError(f"planar_align runs on cpu or cuda, not {flat.device}")
-    r, _ = _check_planar_align(flat, offsets, need)
+    r, t, strides = _check_planar_align(flat, offsets, need)
     offs = offsets.to(torch.int32).contiguous()
     out = torch.empty((r, 2, need), dtype=torch.float32, device=flat.device) \
         if planar else torch.empty((r, need), dtype=torch.complex64,
                                    device=flat.device)
     lib = sync_lib()
     err = lib.ofdm_planar_align(
-        flat.data_ptr(), *window_strides(flat), r, offs.data_ptr(), need,
+        flat.data_ptr(), *strides, r, t, offs.data_ptr(), need,
         out.data_ptr(), *window_strides(out),
         torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check(lib, err, "planar_align")

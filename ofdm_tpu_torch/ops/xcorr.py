@@ -211,6 +211,45 @@ def sliding_correlation_fft(samples: torch.Tensor, template,
     return c[0] if squeeze else c
 
 
+def window_energy(samples: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """E[L] = sum_{j<k} |samples[L + j]|^2 for lags L in [0, n), samples
+    past the end read as 0; batched over leading axes, in the samples' real
+    dtype.
+
+    The running sum behind the differences is float64.  In float32 (the
+    JAX package's) it stops growing in a quiet stretch that follows a loud
+    one, once each sample adds less than half an ulp: a gap of receiver
+    noise after a frame body reads E = 0 exactly, and every normalized
+    matched filter over it reads |c|^2 / 1e-30, a false peak that beats
+    the true locking block (fault F8 in ROADMAP.md).
+    """
+    en = samples.real ** 2 + samples.imag ** 2
+    cs = torch.nn.functional.pad(
+        torch.cumsum(en.double(), dim=-1),
+        (1, max(0, n + k - 1 - samples.shape[-1])))
+    return (cs[..., k:k + n] - cs[..., :n]).to(en.dtype)
+
+
+def locking_sync_quality(samples: torch.Tensor, template, compute_dtype=None):
+    """(offset, rho) for frame detection in continuous scanning.
+
+    ``rho`` is the normalized matched filter maximized over lags >= 0:
+    rho[L] = |c[L]|^2 / (E_template * E_window[L]), in [0, 1] by
+    Cauchy-Schwarz, ~snr/(1+snr) at a true locking block and ~ln(T)/K on
+    noise-only or data-only lags: the statistic every streaming detection
+    gate shares.  The offset comes from the correlation-power argmax, minus
+    1, like every sync path (windows past the end read zeros).  Batched
+    over leading axes; offset int64, rho in the samples' real dtype.
+    """
+    c = sliding_correlation(samples, template, compute_dtype=compute_dtype)
+    k = np.shape(template)[-1]
+    t = samples.shape[-1]
+    power = (c.real ** 2 + c.imag ** 2)[..., k - 1:]          # lags 0..T-1
+    e_t = float(np.sum(np.abs(np.asarray(template)) ** 2))
+    rho = power / (e_t * window_energy(samples, k, t) + 1e-30)
+    return torch.argmax(power, dim=-1) - 1, rho.amax(dim=-1)
+
+
 def locking_sync_offset(samples: torch.Tensor, template,
                         compute_dtype=None) -> torch.Tensor:
     """Frame-sync offset with reference semantics: the first-occurrence

@@ -500,8 +500,7 @@ def decode(samples, guard_bands: bool = False,
     ``device``: a tensor's own device when None, else CUDA for an array
     (raises where CUDA is absent; pass ``device="cpu"`` to run on the CPU).
     """
-    x = device_mod.place(samples, device) if isinstance(samples, torch.Tensor) \
-        else torch.as_tensor(np.asarray(samples)).to(device_mod.resolve(device))
+    x = device_mod.as_tensor(samples, device)
     if x.dim() != 1:
         raise ValueError("decode takes one 1-D stream")
     x = x.to(torch.complex64)

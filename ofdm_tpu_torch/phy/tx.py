@@ -20,6 +20,7 @@ import torch
 from .. import constants
 from ..config import DEFAULT_CONFIG, FrameConfig
 from ..core import device as device_mod
+from ..fec import hamming
 from ..ops.fft import device_table, dft_matmul, idft_matmul_rows_cp
 from ..packets.header import Header
 from .modulation import (BITS_PER_SYMBOL, Modulation, _pad_last,
@@ -131,6 +132,18 @@ def encode_payload(payload: torch.Tensor, *, guard_bands: bool = False,
     return torch.complex(out.real / m, out.imag / m)
 
 
+def _bytes_on(data, device) -> torch.Tensor:
+    """uint8 tensor of bytes, a bytearray, an array or a tensor, placed as
+    ``core.device`` says."""
+    if isinstance(data, torch.Tensor):
+        return device_mod.place(data, device).to(torch.uint8)
+    if isinstance(data, (bytes, bytearray)):
+        host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    else:
+        host = torch.as_tensor(np.asarray(data, dtype=np.uint8))
+    return host.to(device_mod.resolve(device))
+
+
 def encode(data, guard_bands: bool = False,
            modulation: Modulation = Modulation.BPSK,
            cfg: FrameConfig = DEFAULT_CONFIG,
@@ -143,17 +156,26 @@ def encode(data, guard_bands: bool = False,
     tensor's own device when None, else CUDA for bytes and arrays (raises
     where CUDA is absent; pass ``device="cpu"`` to run on the CPU).
     """
-    if isinstance(data, torch.Tensor):
-        arr = device_mod.place(data, device).to(torch.uint8)
-    else:
-        if isinstance(data, (bytes, bytearray)):
-            host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-        else:
-            host = torch.as_tensor(np.asarray(data, dtype=np.uint8))
-        arr = host.to(device_mod.resolve(device))
+    arr = _bytes_on(data, device)
     header = torch.frombuffer(bytearray(Header(arr.shape[-1]).to_bytes()),
                               dtype=torch.uint8).to(arr.device)
     header = header.expand(*arr.shape[:-1], header.shape[0])
     payload = torch.cat([header, arr], dim=-1)
     return encode_payload(payload, guard_bands=guard_bands,
                           modulation=modulation, cfg=cfg, dtype=dtype)
+
+
+def encode_hamming(data, *, guard_bands: bool = False,
+                   modulation: Modulation = Modulation.BPSK,
+                   cfg: FrameConfig = DEFAULT_CONFIG,
+                   dtype: torch.dtype = torch.complex64,
+                   device=None) -> torch.Tensor:
+    """FEC + modem encoder: uint8[..., n] USER bytes -> frames whose payload
+    is the Hamming(7,4)-coded stream (the transmit side of the Hamming
+    tail of ``phy.streaming``).  Wire-identical to
+    ``encode(fec.hamming.encode(data), ...)``, which it is; ``data`` and
+    ``device`` as for ``encode``.
+    """
+    return encode(hamming.encode(_bytes_on(data, device)),
+                  guard_bands=guard_bands, modulation=modulation, cfg=cfg,
+                  dtype=dtype)

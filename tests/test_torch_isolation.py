@@ -52,6 +52,25 @@ for kw in (dict(align_impl="chunked"), dict(sync_dtype=torch.bfloat16),
                        out), kw
 assert bytes(ott.decode(rx, guard_bands=True,
                         modulation=ott.Modulation.QAM16)) == bytes(range(64))
+from ofdm_tpu_torch.fec import interleave, reed_solomon
+from ofdm_tpu_torch.phy.streaming import coded_len
+user = torch.arange(96, dtype=torch.uint8).reshape(2, 48)
+frames = ott.encode_hamming(user, guard_bands=True, modulation=ott.Modulation.QPSK)
+stream = torch.cat([torch.zeros(300, dtype=torch.complex64), frames.reshape(-1)])
+kw = dict(payload_len=coded_len(48, "hamming"), modulation=ott.Modulation.QPSK,
+          fec="hamming", data_len=48)
+for resync in (True, False):
+    p, ok = ott.decode_regular(stream, n_frames=2, spacing=frames.shape[1],
+                               resync=resync, **kw)
+    assert ok.all() and (p == user.numpy()).all(), resync
+burst = ott.decode_burst(stream, **kw)
+assert [b[0] for b in burst] == [299, 299 + frames.shape[1]], burst
+assert all((b[1] == user[i].numpy()).all() for i, b in enumerate(burst))
+assert [c[0] for c in ott.decode_continuous(stream, **kw)] == [b[0] for b in burst]
+assert ott.Analysis.new(p, user.numpy()).num_errs == 0
+assert (interleave.deinterleave_device(interleave.interleave_device(user, 5), 5, 48)
+        == user).all()
+assert reed_solomon.decode_stream(reed_solomon.encode_stream(b"abc"))[1]
 assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)
 print("ok")
 """

@@ -16,10 +16,13 @@ here also run on a host without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+import ofdm_tpu_torch as ott
 from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
 from ofdm_tpu_torch.kernels.align import (pin_rowmajor, pin_rowmajor_reference,
                                           planar_align, planar_align_reference,
@@ -36,6 +39,23 @@ T, NEED = 2560, 2400
 # the port's locking template, bitwise equal to ofdm_tpu's (test_torch_constants)
 TPL = constants.locking_for(DEFAULT_CONFIG).astype(np.complex64)
 TPL_C = (TPL * np.exp(0.7j)).astype(np.complex64)
+
+
+# planar_align's shared-stream mode: one stream, rows past its end
+T_S, NEED_S = 3000, 700
+OFFS_S = [0, 1, 999, 2300, 2301, 2999, 3000, 4500]     # the last four run past T
+
+
+def shared_stream_case() -> np.ndarray:
+    rng = np.random.default_rng(12)
+    return (rng.standard_normal(T_S) + 1j * rng.standard_normal(T_S)).astype(
+        np.complex64)
+
+
+def stream_forms(s: torch.Tensor) -> dict:
+    """A complex64 [T] stream as each stream form planar_align takes."""
+    return {"complex": s, "planar": torch.stack([s.real, s.imag]),
+            "planar strided": torch.view_as_real(s).t()}
 
 
 def _pallas():
@@ -503,3 +523,47 @@ def test_eq_demod_pack_kernel_guard_bands_without_pilots(mod):
     kw = dict(n_data=nd, n_pilots=0, modulation=mod, cfg=DEFAULT_CONFIG)
     assert torch.equal(eq_demod_pack(*args, **kw),
                        eq_demod_pack_reference(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["complex", "planar", "planar strided"])
+def test_planar_align_shared_stream_kernel_matches_plain(form):
+    """Covered on the card by chip_smoke.py phase 6."""
+    dev = _cuda()
+    x = stream_forms(torch.as_tensor(shared_stream_case()).to(dev))[form]
+    offs = torch.tensor(OFFS_S, dtype=torch.int32, device=dev)
+    for planar in (False, True):
+        got = planar_align(x, offs, NEED_S, planar=planar)
+        assert torch.equal(got, planar_align_reference(x, offs, NEED_S,
+                                                       planar=planar))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resync", [True, False])
+def test_decode_regular_on_cuda_waits_once(resync):
+    """Covered on the card by chip_smoke.py phase 9: the CPU's bytes, and
+    one synchronizing call per decode (the output fetch)."""
+    dev = _cuda()
+    user = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, (4, 96), dtype=np.uint8))
+    frames = ott.encode_hamming(user, guard_bands=True, modulation=Modulation.QPSK)
+    stream = frames.reshape(-1)
+    kw = dict(n_frames=4, spacing=frames.shape[1], payload_len=168,
+              modulation=Modulation.QPSK, fec="hamming", data_len=96,
+              resync=resync)
+    want = ott.decode_regular(stream, **kw)
+    on_card = stream.to(dev)
+    ott.decode_regular(on_card, **kw)                       # warm the tables
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = ott.decode_regular(on_card, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0], user.numpy())
