@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per source, all
-at once) and runs eleven phases:
+Builds the host code under native/ (the RS codec and the IQ loader, with
+make, before the port is imported: its RS module loads the codec at
+import), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
+source, all at once), and runs twelve phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -66,7 +68,23 @@ at once) and runs eleven phases:
      ending in its output fetch) presync and resync on both stream forms,
      its device busy time, idle share and top device items; the device
      launches per step and the eager Hamming decode's share of them; and
-     K3's shared-stream cut beside its plain version and its bound.
+     K3's shared-stream cut beside its plain version and its bound;
+ 12. serving at bench.py's config 5 (tools/exp_serving.py): 8 distinct
+     buffers of 780 RS-coded 24 x 24 id images (QAM64, guard bands, 2,560
+     samples a frame, 1,996,960 samples a buffer, SNR 45, odd buffers with
+     CFO), made on the card, served 6 rounds (48 buffers) with 4 in flight
+     in three modes: feed (a capture thread, pinned double-buffered
+     uploads), device-resident, and planar capture (fc32 files read back
+     through Capture and uploaded as planes).  Every image of every buffer
+     must equal its transmitted pixels; each serve step launches K3 1 + K1
+     1 + K2 1 and makes no synchronizing call before its fetch; K1 and K3
+     at the serving shape equal their plain versions; the native RS codec
+     and IQ loader are loaded; rx_stream runs on the card.  Then the
+     timing: per mode ms/buffer, samples/s, image frames/s, p50 and p99
+     latency; H2D through the pinned ring and pageable; the payload fetch;
+     the host tail (RS, colorspace); the step's device busy time and idle
+     share; K3 and K1 at the serving shape beside their plain versions and
+     bounds; the serial sum of the parts against feed mode.
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
@@ -78,9 +96,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -88,11 +108,61 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+
+def native_flags(cxx: str) -> list[str]:
+    """native/Makefile's CXXFLAGS, without -fopenmp where the compiler has
+    no OpenMP runtime (its pragmas then compile as plain loops: the RS
+    codec runs on one thread per call)."""
+    flags = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = subprocess.run([cxx, "-fopenmp", "-x", "c++", "-", "-o",
+                                str(Path(tmp) / "probe")],
+                               input="int main() { return 0; }\n",
+                               capture_output=True, text=True)
+    return flags + ["-fopenmp"] if probe.returncode == 0 else flags
+
+
+def build_native() -> tuple[float, list[str]]:
+    """Build native/ (librs_codec.so, libiq_loader.so) with make, or with
+    g++ where make is absent, and ``native_flags``; (seconds, the flags).
+    Raises where the build fails: serving on the numpy RS codec is not
+    measured."""
+    t0 = time.perf_counter()
+    native = ROOT / "native"
+    cxx = shutil.which("g++") or "g++"
+    flags = native_flags(cxx)
+    if shutil.which("make"):
+        cmds = [["make", "-j2", "-C", str(native), f"CXX={cxx}",
+                 f"CXXFLAGS={' '.join(flags)}"]]
+    else:
+        cmds = [[cxx, *flags, "-shared", "-o", str(native / f"lib{src}.so"),
+                 str(native / f"{src}.cpp")] for src in ("rs_codec", "iq_loader")]
+    for cmd in cmds:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_smoke: native build failed ({' '.join(cmd)}):"
+                             f"\n{proc.stdout}{proc.stderr}")
+    return time.perf_counter() - t0, flags
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
+    NATIVE_S, NATIVE_FLAGS = build_native()
 
 import ofdm_tpu_torch as ott  # noqa: E402
 from ofdm_tpu_torch import constants  # noqa: E402
+from ofdm_tpu_torch.apps import rx_stream  # noqa: E402
+from ofdm_tpu_torch.core.transfer import (Uploader, fetch_async,  # noqa: E402
+                                          to_device_planar)
 from ofdm_tpu_torch.fec import hamming  # noqa: E402
+from ofdm_tpu_torch.fec import reed_solomon as rs  # noqa: E402
+from ofdm_tpu_torch.io import capture as capture_mod  # noqa: E402
+from ofdm_tpu_torch.io import iqfile, serving  # noqa: E402
+from ofdm_tpu_torch.io.feed import SampleFeed, double_buffered  # noqa: E402
 from ofdm_tpu_torch.kernels import _build  # noqa: E402
 from ofdm_tpu_torch.kernels.align import (pin_rowmajor,  # noqa: E402
                                           pin_rowmajor_reference, planar_align,
@@ -102,6 +172,8 @@ from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
+from ofdm_tpu_torch.packets.colors import id_to_rgb  # noqa: E402
+from ofdm_tpu_torch.phy import streaming as streaming_mod  # noqa: E402
 from ofdm_tpu_torch.phy.streaming import coded_len  # noqa: E402
 from ofdm_tpu_torch.phy.modulation import (BITS_PER_SYMBOL,  # noqa: E402
                                             modulate_bytes_packed)
@@ -116,6 +188,10 @@ SEED = 0
 HAM_FRAMES = 256
 HAM_BYTES = 4680
 BURST_FRAMES = 64
+# config 5 of bench.py: serving (tools/exp_serving.py:55-58)
+SRV_DISTINCT = 8
+SRV_ROUNDS = 6
+SRV_IN_FLIGHT = 4
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -595,6 +671,223 @@ def phase_streaming(gen, dev, name_limit: str) -> None:
           f"{k3_bound:.4f} (bytes), share {k3_bound / k3:.3f} on {name_limit}")
 
 
+def median_s(fn, reps: int = 10) -> float:
+    """Median host-clock seconds of ``fn`` (which ends in a wait), after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_serving(dev, name_limit: str, n_frames: int) -> None:
+    """Phase 12: serving at config 5 (see the module docstring), with
+    ``n_frames`` frames a buffer."""
+    t_phase = time.perf_counter()
+    check(rs._LIB is not None and capture_mod._LIB is not None,
+          "the native RS codec and IQ loader must be loaded")
+    bufs, pixels = serving.synth_buffers(SRV_DISTINCT, n_frames, device=dev)
+    host = [b.cpu().numpy() for b in bufs]
+    t_buf = serving.buffer_len(n_frames)
+    flen = serving.FLEN
+    n_buf = SRV_DISTINCT * SRV_ROUNDS
+    order = [i % SRV_DISTINCT for i in range(n_buf)]
+    per_step = launches(planar_align=1, sync_align=1, eq_demod_pack=1)
+
+    # one serve step: its launches, no synchronizing call before the fetch
+    raw, n_step = counted(lambda: serving.serve_step(bufs[1], n_frames))
+    check(n_step == per_step, f"serve_step launched {n_step}, want {per_step}")
+    _, n_sync = host_syncs(lambda: serving.serve_step(bufs[1], n_frames))
+    check(n_sync == 0, f"serve_step made {n_sync} synchronizing calls")
+    _, n_sync_fetch = host_syncs(
+        lambda: fetch_async(serving.serve_step(bufs[1], n_frames)))
+    check(n_sync_fetch == 0, f"serve_step + fetch_async made {n_sync_fetch} "
+          "synchronizing calls")
+    # K3 and K1 against their plain versions at the serving shape
+    first = streaming_mod._first_sync(bufs[1], spacing=flen,
+                                      cfg=serving.CFG).clamp(min=0)
+    offs = first + torch.arange(n_frames, device=dev) * flen
+    rows = planar_align(bufs[1], offs, flen, planar=True)
+    rows_ref = planar_align_reference(bufs[1], offs, flen, planar=True)
+    torch.cuda.synchronize()
+    check(torch.equal(rows, rows_ref), "planar_align at the serving shape "
+          "differs from plain")
+    template = constants.locking_for(serving.CFG)
+    win, off = sync_align(rows, template, flen,
+                          search_window=serving.CFG.sym_len, planar=True)
+    win_ref, off_ref = sync_align_reference(rows, template, flen,
+                                            search_window=serving.CFG.sym_len,
+                                            planar=True)
+    torch.cuda.synchronize()
+    check(torch.equal(off, off_ref) and torch.equal(win, win_ref),
+          "sync_align at the serving shape differs from plain")
+    print(f"phase 12 serve_step on {n_frames} x {flen}-sample "
+          f"frames (T={t_buf}): launches {n_step}; synchronizing "
+          f"calls {n_sync} (with the async fetch {n_sync_fetch}); K3 "
+          f"{n_frames} rows from the stream and K1 on [{n_frames}, "
+          f"2, {flen}] with search window {serving.CFG.sym_len} "
+          "identical to plain; native RS codec and IQ loader loaded")
+
+    def drive(buffers) -> dict:
+        """Serve ``buffers`` (the 48 in ``order``); every image must be its
+        transmitted pixels.  Returns the mode's numbers."""
+        lat, rs_s, col_s = [], [], []
+        t0 = time.perf_counter()
+        for sv in serving.serve(buffers, n_frames, in_flight=SRV_IN_FLIGHT):
+            want = pixels[order[sv.index]]
+            bad = int((sv.pixels != want).any(axis=1).sum())
+            check(bad == 0 and sv.ok.all(), f"buffer {sv.index}: {bad} of "
+                  f"{n_frames} images differ, RS ok {int(sv.ok.sum())}")
+            lat.append(sv.latency_s)
+            rs_s.append(sv.rs_s)
+            col_s.append(sv.colors_s)
+        wall = time.perf_counter() - t0
+        check(len(lat) == n_buf, f"served {len(lat)} buffers, want {n_buf}")
+        lat_ms = np.asarray(lat) * 1e3
+        return {"ms": wall / n_buf * 1e3, "samples_s": n_buf * t_buf / wall,
+                "frames_s": n_buf * n_frames / wall,
+                "p50": float(np.percentile(lat_ms, 50)),
+                "p99": float(np.percentile(lat_ms, 99)),
+                "rs_ms": statistics.median(rs_s) * 1e3,
+                "colors_ms": statistics.median(col_s) * 1e3}
+
+    up = Uploader(dev)
+    up_planar = Uploader(dev, planar=True)
+
+    def feed_mode():
+        with SampleFeed(host[b] for b in order) as feed:
+            return drive(double_buffered(feed, up))
+
+    def resident_mode():
+        return drive(bufs[b] for b in order)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [Path(tmp) / f"buffer{b}.dat" for b in range(SRV_DISTINCT)]
+        for path, h in zip(paths, host):
+            iqfile.write_iq(path, h)
+
+        def capture_planes():
+            for b in order:
+                with capture_mod.Capture(paths[b]) as cap:
+                    yield next(cap.chunks(t_buf))
+
+        def planar_mode():
+            with SampleFeed(capture_planes()) as feed:
+                return drive(double_buffered(feed, up_planar))
+
+        # one buffer: file -> Capture.chunks -> to_device_planar, the same
+        # bytes as the complex buffer's
+        with capture_mod.Capture(paths[1]) as cap:
+            chunks = list(cap.chunks(t_buf))
+        check(len(chunks) == 1 and chunks[0][0].size == t_buf,
+              "Capture.chunks did not give the buffer whole")
+        planes = to_device_planar(chunks[0], device=dev)
+        check(torch.equal(serving.serve_step(planes, n_frames), raw),
+              "planar capture bytes differ from the complex buffer's")
+        modes = {"feed (capture thread, pinned double-buffered upload)": feed_mode,
+                 "device-resident": resident_mode,
+                 "planar capture (fc32 file, Capture, planar upload)": planar_mode}
+        results = {}
+        for label, fn in modes.items():
+            fn()                                      # warm-up, checked too
+            res, n = counted(fn)
+            want = launches(planar_align=n_buf, sync_align=n_buf,
+                            eq_demod_pack=n_buf)
+            check(n == want, f"serving {label} launched {n}, want {want}")
+            results[label] = res
+            print(f"phase 12 serving {label}: {n_buf} buffers, every image of "
+                  f"every buffer exact; launches {n}")
+
+    # rx_stream on the card: the per-buffer route and the burst route
+    for extra in ([], ["--continuous"]):
+        rc = rx_stream.main(["--buffers", "3", "--buffer-len", "65536",
+                             "--device", "cuda", *extra])
+        check(rc == 0, f"rx_stream {extra} returned {rc}")
+    print("phase 12 rx_stream --device cuda: 3 buffers decoded, per buffer "
+          "and --continuous")
+
+    # the parts, one at a time
+    def h2d(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return median_s(run)
+
+    up_s = h2d(lambda: up(host[0]))
+    page_s = h2d(lambda: torch.from_numpy(host[0]).to(dev))
+    nbytes = host[0].nbytes
+
+    def step():
+        return fetch_async(serving.serve_step(bufs[0], n_frames)).result()
+    step_ms = time_ms(step)
+    done = serving.serve_step(bufs[0], n_frames)
+    torch.cuda.synchronize()
+    fetch_s = median_s(lambda: fetch_async(done).result())
+    raw_np = fetch_async(done).result()
+    rs_s = median_s(lambda: rs.decode_payload_rows(raw_np, serving.USER_BYTES))
+    data_np, _ = rs.decode_payload_rows(raw_np, serving.USER_BYTES)
+    col_s = median_s(lambda: id_to_rgb(data_np.reshape(-1)))
+    dk = device_ms(lambda: serving.serve_step(bufs[0], n_frames))
+    busy = sum(dk.values())
+    n_dev = device_launches(lambda: serving.serve_step(bufs[0], n_frames))
+    # K3 and K1 at the serving shape: device time beside plain and bound
+    # (each input read once, each output written once; K1's correlation
+    # scans search_window + K lags of each row)
+    sw = serving.CFG.sym_len
+    k3 = sum(device_ms(lambda: planar_align(bufs[1], offs, flen,
+                                            planar=True)).values())
+    k3_plain = sum(device_ms(lambda: planar_align_reference(
+        bufs[1], offs, flen, planar=True)).values())
+    k1 = sum(device_ms(lambda: sync_align(rows, template, flen,
+                                          search_window=sw,
+                                          planar=True)).values())
+    k1_plain = sum(device_ms(lambda: sync_align_reference(
+        rows, template, flen, search_window=sw,
+        planar=True)).values())
+    n_rows = n_frames
+    k3_bound = bound(0, n_rows * flen * (8 + 8) + n_rows * 4)
+    k1_bound = bound(n_rows * (sw + len(template)) * len(template) * 2 * 2,
+                     n_rows * flen * (8 + 8) + n_rows * 4)
+    for name, ms, plain, (b_ms, b_by) in (("planar_align (K3)", k3, k3_plain,
+                                          k3_bound),
+                                         ("sync_align (K1)", k1, k1_plain,
+                                          k1_bound)):
+        print(f"phase 12 {name} at the serving shape: {ms:.4f} ms/call, "
+              f"plain {plain:.4f}, bound {b_ms:.4f} ({b_by}), share "
+              f"{b_ms / ms:.3f} on {name_limit}")
+    serial = up_s * 1e3 + step_ms + (rs_s + col_s) * 1e3
+    feed_ms = results[next(iter(modes))]["ms"]
+    print(f"phase 12 timing on {name_limit} ({n_buf} buffers of "
+          f"{t_buf} samples, {SRV_IN_FLIGHT} in flight, host clock; "
+          "latency from a step's enqueue to the end of its host tail):")
+    for label, r in results.items():
+        print(f"  {r['ms']:.4f} ms/buffer, {r['samples_s']:.4e} samples/s, "
+              f"{r['frames_s']:.1f} image frames/s, latency p50 {r['p50']:.4f} "
+              f"p99 {r['p99']:.4f} ms, in-loop tail RS {r['rs_ms']:.4f} + "
+              f"colorspace {r['colors_ms']:.4f} ms  {label} on {name_limit}")
+    print(f"phase 12 H2D of one buffer ({nbytes} B): pinned ring "
+          f"{up_s * 1e3:.4f} ms ({nbytes / up_s / 1e9:.3f} GB/s, host copy into "
+          f"the slot included), pageable .to(cuda) {page_s * 1e3:.4f} ms "
+          f"({nbytes / page_s / 1e9:.3f} GB/s) on {name_limit}")
+    print(f"phase 12 fetch of the payload slice ({raw_np.nbytes} B): "
+          f"{fetch_s * 1e3:.4f} ms; host tail alone RS {rs_s * 1e3:.4f} ms + "
+          f"colorspace {col_s * 1e3:.4f} ms per buffer on {name_limit}")
+    print(f"phase 12 serve step + fetch {step_ms:.4f} ms (CUDA events, median "
+          f"of {REPS}); device busy {busy:.4f} ms, idle share "
+          f"{1 - busy / step_ms:.3f}; {n_dev} kernels and copies per step "
+          f"(torch.profiler) on {name_limit}; top device items:")
+    for kname, kms in sorted(dk.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {kms:.4f}  {kname[:100]}")
+    print(f"phase 12 serial sum upload {up_s * 1e3:.4f} + step {step_ms:.4f} + "
+          f"tail {(rs_s + col_s) * 1e3:.4f} = {serial:.4f} ms against feed "
+          f"mode's {feed_ms:.4f} ms/buffer (overlap {serial / feed_ms:.3f}x) "
+          f"on {name_limit}")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
@@ -610,7 +903,9 @@ def main() -> None:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"phase 1 build: {build_s:.2f} s for {len(libs)} sources, in "
-          f"parallel, into {_build.BUILD_DIR}")
+          f"parallel, into {_build.BUILD_DIR}; native/ (RS codec, IQ loader) "
+          f"{NATIVE_S:.2f} s before the port's import, flags "
+          f"{' '.join(NATIVE_FLAGS)}")
     for so in libs:
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -945,6 +1240,10 @@ def main() -> None:
               n_view["pin_rowmajor"], k5_err),
     ]
     phase_streaming(gen, dev, name_limit)
+    geometry = (serving.PAYLOAD_LEN, serving.N_BLOCKS, serving.FLEN,
+                serving.buffer_len())
+    check(geometry == (765, 22, 2560, 1_996_960), f"config 5 geometry {geometry}")
+    phase_serving(dev, name_limit, serving.N_FRAMES)
     for e in kernels:
         print(f"kernel {e['name']}: {e['ms']:.4f} ms/call, bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}), roofline share "

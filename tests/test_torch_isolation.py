@@ -71,6 +71,15 @@ assert ott.Analysis.new(p, user.numpy()).num_errs == 0
 assert (interleave.deinterleave_device(interleave.interleave_device(user, 5), 5, 48)
         == user).all()
 assert reed_solomon.decode_stream(reed_solomon.encode_stream(b"abc"))[1]
+from ofdm_tpu_torch.core.transfer import Uploader, to_host
+from ofdm_tpu_torch.io.feed import SampleFeed, double_buffered
+from ofdm_tpu_torch.io.serving import serve, synth_buffers
+from ofdm_tpu_torch.apps import rx_stream
+bufs, pixels = synth_buffers(2, 2, device="cpu")
+with SampleFeed(to_host(b) for b in bufs) as feed:
+    served = list(serve(double_buffered(feed, Uploader("cpu")), 2, in_flight=1))
+assert [s.index for s in served] == [0, 1]
+assert all(s.ok.all() and (s.pixels == pixels[s.index]).all() for s in served)
 assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)
 print("ok")
 """
