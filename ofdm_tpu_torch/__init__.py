@@ -9,10 +9,9 @@ bytes or numpy arrays,
 which they put on CUDA unless the caller passes ``device=`` (``"cpu"`` to
 run on the CPU).  Randomness comes from explicit ``torch.Generator``s.
 
-On CUDA the decode path refuses to run while TF32 is allowed
-(``torch.backends.cuda.matmul.allow_tf32`` or
-``torch.backends.cudnn.allow_tf32``, the latter True by default): set both
-to False first.  The kernels build with ``nvcc`` at first use into
+On CUDA the decode path refuses to run while TF32 is allowed for cuBLAS
+matmuls or cuDNN convolutions (the latter allow it by default): call
+``ofdm_tpu_torch.ops.fft.set_full_fp32()`` first.  The kernels build with ``nvcc`` at first use into
 ``build/ofdm_tpu_torch/``.
 """
 

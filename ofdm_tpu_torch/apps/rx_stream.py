@@ -20,11 +20,9 @@ import argparse
 import pathlib
 import time
 
-import numpy as np
-import torch
-
 import ofdm_tpu_torch as ott
-from ofdm_tpu_torch.core import device as device_mod
+from ofdm_tpu_torch.apps.common import (add_device_arg, load_image,
+                                        resolve_device)
 from ofdm_tpu_torch.core.corpus import decipher_transmission_colorspace
 from ofdm_tpu_torch.core.transfer import Uploader, to_host
 from ofdm_tpu_torch.fec import reed_solomon as rs
@@ -35,8 +33,6 @@ from ofdm_tpu_torch.packets.colors import id_to_rgb
 from ofdm_tpu_torch.phy.streaming import (coded_len, decode_burst,
                                           decode_continuous)
 
-IMAGE_SEED = 0
-
 
 class _Timer:
     def __enter__(self):
@@ -45,16 +41,6 @@ class _Timer:
 
     def __exit__(self, *exc):
         self.ms = (time.perf_counter() - self.t0) * 1e3
-
-
-def _image(args) -> np.ndarray:
-    """The id image to stream: ``--image-bytes`` or one made from
-    ``IMAGE_SEED``."""
-    if args.image_bytes:
-        return np.frombuffer(pathlib.Path(args.image_bytes).read_bytes(),
-                             np.uint8)
-    return np.random.default_rng(IMAGE_SEED).integers(
-        0, 256, args.width * args.height, dtype=np.uint8)
 
 
 def main(argv=None):
@@ -81,17 +67,13 @@ def main(argv=None):
     p.add_argument("--timing", action="store_true",
                    help="log per-buffer wall-clock decode time (the live-path "
                         "latency metric)")
-    p.add_argument("--device", default="cuda",
-                   help="where buffers are decoded: cuda (default) or cpu")
+    add_device_arg(p)
     args = p.parse_args(argv)
 
     log = set_up_logging("rx_stream")
     mod = ott.Modulation(args.modulation)
-    dev = device_mod.resolve(args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    image = _image(args)
+    dev = resolve_device(args.device)
+    image = load_image(args.image_bytes, args.width, args.height)
 
     if args.files:
         source = file_replay(args.files)

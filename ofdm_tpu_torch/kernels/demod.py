@@ -54,19 +54,13 @@ def _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks):
                          "the planes' device")
 
 
-def eq_demod_pack_reference(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
-                            f_delta: torch.Tensor, *, n_data: int,
-                            n_pilots: int, modulation: Modulation,
-                            cfg: FrameConfig,
-                            blocks: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of ``eq_demod_pack``: the elementwise tail of the
-    matrix-derot decode as the JAX package writes it (rot_dc multiply,
-    y / h, mean pilot angle, ``demodulate_symbols_packed``), after an
-    ``index_select`` of the blocks when a table is given."""
-    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks)
-    if blocks is not None:
-        yr = yr.index_select(1, blocks.long())
-        yi = yi.index_select(1, blocks.long())
+def equalized_symbols(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
+                      f_delta: torch.Tensor, *, n_data: int, n_pilots: int,
+                      cfg: FrameConfig) -> torch.Tensor:
+    """The equalized data symbols, complex64 [B, NB * n_data], that the tail
+    decides on: rot_dc multiply, y / h, mean pilot angle removed, as the JAX
+    package writes it.  The plain version's front, and what the decode
+    diagnostics show as the constellation."""
     nb = yr.shape[1]
     chunk = torch.arange(nb, dtype=torch.float32, device=yr.device) \
         + cfg.n_sync_chunks
@@ -77,7 +71,25 @@ def eq_demod_pack_reference(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
     if n_pilots:
         phi = torch.angle(eq[..., n_data:n_data + n_pilots]).mean(-1, keepdim=True)
         data = data * torch.polar(torch.ones_like(phi), -phi)
-    return demodulate_symbols_packed(data.reshape(data.shape[0], -1), modulation)
+    return data.reshape(data.shape[0], -1)
+
+
+def eq_demod_pack_reference(yr: torch.Tensor, yi: torch.Tensor, h: torch.Tensor,
+                            f_delta: torch.Tensor, *, n_data: int,
+                            n_pilots: int, modulation: Modulation,
+                            cfg: FrameConfig,
+                            blocks: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``eq_demod_pack``: the elementwise tail of the
+    matrix-derot decode (``equalized_symbols``, then
+    ``demodulate_symbols_packed``), after an ``index_select`` of the blocks
+    when a table is given."""
+    _check(yr, yi, h, f_delta, n_data, n_pilots, modulation, blocks)
+    if blocks is not None:
+        yr = yr.index_select(1, blocks.long())
+        yi = yi.index_select(1, blocks.long())
+    return demodulate_symbols_packed(
+        equalized_symbols(yr, yi, h, f_delta, n_data=n_data,
+                          n_pilots=n_pilots, cfg=cfg), modulation)
 
 
 @lru_cache(maxsize=None)

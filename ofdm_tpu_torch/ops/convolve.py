@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fft import require_full_fp32
+from .fft import fft, ifft, require_full_fp32
 
 
 def convolve_direct(x: torch.Tensor, h_real: torch.Tensor) -> torch.Tensor:
@@ -26,3 +26,14 @@ def convolve_direct(x: torch.Tensor, h_real: torch.Tensor) -> torch.Tensor:
     out = F.conv1d(planes, w, padding=k - 1).reshape(2, *lead, t + k - 1)
     out = torch.complex(out[0], out[1])
     return out[0] if squeeze else out
+
+
+def convolve_fft(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """FFT-based linear convolution of two 1-D signals, parity with
+    src/signals/mod.rs:219-237; output length T + K - 1."""
+    n = x.shape[-1] + h.shape[-1] - 1
+    xp = torch.cat([x, x.new_zeros(n - x.shape[-1])])
+    hp = h.to(xp.dtype)
+    hp = torch.cat([hp, hp.new_zeros(n - h.shape[-1])])
+    return ifft(fft(xp, use_matmul=False) * fft(hp, use_matmul=False),
+                use_matmul=False)

@@ -12,6 +12,9 @@ JAX package:
   -(K-1)), the route of templates over 128 taps.
 - ``sliding_correlation_fft``: overlap-save with ``torch.fft``.
 
+``xcorr_fft`` is the MATLAB-convention oracle of src/signals/mod.rs:186-217,
+kept for the tests and for parity of the interface.
+
 ``compute_dtype=torch.bfloat16`` rounds the operands to bf16 and multiplies
 them in f32, as JAX's bf16 sync accumulates in f32
 (``preferred_element_type``): a bf16 x bf16 product is exact in f32, so
@@ -26,7 +29,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .fft import device_table
+from .fft import device_table, fft, ifft
+from .shift import fft_shift
+from .stats import idmax
 
 MAX_TAPS = 128
 
@@ -92,6 +97,24 @@ def check_sync_dtype(compute_dtype) -> None:
     if not any(compute_dtype is d or compute_dtype == d for d in SYNC_DTYPES):
         raise ValueError(f"unknown sync compute dtype {compute_dtype!r}; "
                          f"expected one of {SYNC_DTYPES}")
+
+
+def xcorr_fft(a: torch.Tensor, b: torch.Tensor):
+    """MATLAB-style linear cross-correlation of two 1-D signals, parity with
+    src/signals/mod.rs:186-217: both padded to 2*len(a) - 1,
+    IFFT(FFT(a) conj(FFT(b))), fftshifted.
+
+    Returns (idxmax, cross): cross has length 2*len(a) - 1 and index p is
+    lag p - (len(a) - 1); idxmax is the first index of its largest power (a
+    0-d tensor on the inputs' device).
+    """
+    pad_to = 2 * a.shape[-1] - 1
+    ap = torch.cat([a, a.new_zeros(pad_to - a.shape[-1])])
+    bp = torch.cat([b, b.new_zeros(pad_to - b.shape[-1])])
+    cross = fft_shift(ifft(fft(ap, use_matmul=False)
+                           * fft(bp, use_matmul=False).conj(),
+                           use_matmul=False))
+    return idmax(cross), cross
 
 
 def sliding_correlation_matmul(samples: torch.Tensor, template,

@@ -8,7 +8,9 @@ odd-integer levels: the first half of a symbol's bits drives the I axis, the
 second half the Q axis.  Decisions round half to even (``torch.round``, as
 ``jnp.round``), so the thresholds sit exactly on the even integers.
 
-Everything works on uint8 codes with shifts and masks: no bit tensor is built.
+The packed forms work on uint8 codes with shifts and masks and build no bit
+tensor; ``modulate_bits`` and ``demodulate_symbols`` are the bit-tensor forms
+with the same tables and decisions.
 """
 
 from __future__ import annotations
@@ -61,6 +63,43 @@ def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
     if n <= 0:
         return x
     return torch.cat([x, x.new_zeros((*x.shape[:-1], n))], dim=-1)
+
+
+def _bits_to_int(bits: torch.Tensor) -> torch.Tensor:
+    """bool[..., k] -> int64, LSB-first."""
+    k = bits.shape[-1]
+    weights = torch.tensor([1 << i for i in range(k)], device=bits.device)
+    return (bits.long() * weights).sum(dim=-1)
+
+
+def _int_to_bits(vals: torch.Tensor, k: int) -> torch.Tensor:
+    shifts = torch.arange(k, device=vals.device)
+    return ((vals[..., None].long() >> shifts) & 1).to(torch.bool)
+
+
+def modulate_bits(bits: torch.Tensor, scheme: Modulation,
+                  dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """bool[..., n_bits] -> complex[..., n_syms].  Where n_bits is no
+    multiple of the bits per symbol (QAM64's 6 against a byte stream) the
+    tail is zero-padded into a last partial symbol: no bit is dropped."""
+    bps = BITS_PER_SYMBOL[scheme]
+    bits = bits.to(torch.bool)
+    n_sym = -(-bits.shape[-1] // bps)
+    bits = _pad_last(bits, n_sym * bps - bits.shape[-1])
+    bits = bits.reshape(*bits.shape[:-1], n_sym, bps)
+    rd = real_dtype(dtype)
+    one = torch.ones((), dtype=rd, device=bits.device)
+    if scheme is Modulation.BPSK:
+        re = torch.where(bits[..., 0], one, -one)
+        return torch.complex(re, torch.zeros_like(re))
+    if scheme is Modulation.QPSK:
+        return torch.complex(torch.where(bits[..., 0], one, -one),
+                             torch.where(bits[..., 1], one, -one))
+    # square QAM: the first half of the bits is the I Gray code, the rest Q
+    half = bps // 2
+    levels = torch.as_tensor(_gray_levels(half), dtype=rd, device=bits.device)
+    return torch.complex(levels[_bits_to_int(bits[..., :half])],
+                         levels[_bits_to_int(bits[..., half:])])
 
 
 def modulate_bytes_packed(data: torch.Tensor, scheme: Modulation,
@@ -168,3 +207,28 @@ def demodulate_symbols_packed(syms: torch.Tensor,
         ], dim=-1)
     out = out.reshape(*out.shape[:-2], n_grp * nb)
     return out[..., :n_bytes]
+
+
+def demodulate_symbols(syms: torch.Tensor, scheme: Modulation) -> torch.Tensor:
+    """complex[..., n_syms] -> bool[..., n_syms * bits/sym] (hard decision),
+    the bit-tensor form of ``demodulate_symbols_packed``."""
+    re, im = syms.real, syms.imag
+    if scheme is Modulation.BPSK:
+        return re > 0.0
+    if scheme is Modulation.QPSK:
+        # the reference's decision table with its (re<0, im==0) fallthrough
+        # to (0, 0), src/receiver.rs:165-184
+        l = re >= 0.0
+        r = torch.where(l, im >= 0.0, im > 0.0)
+        return torch.stack([l, r], dim=-1).reshape(*syms.shape[:-1], -1)
+    half = BITS_PER_SYMBOL[scheme] // 2
+    n_levels = 1 << half
+    gray = torch.as_tensor(_gray_from_rank(half), device=re.device)
+
+    def axis_bits(v):
+        rank = torch.clamp(torch.round((v + (n_levels - 1)) / 2.0),
+                           0, n_levels - 1).long()
+        return _int_to_bits(gray[rank], half)
+
+    bits = torch.cat([axis_bits(re), axis_bits(im)], dim=-1)
+    return bits.reshape(*syms.shape[:-1], -1)

@@ -43,7 +43,8 @@ from ..config import DEFAULT_CONFIG, FrameConfig
 from ..core import device as device_mod
 from ..kernels.align import pin_rowmajor, planar_align, sync_align
 from ..kernels.chain import sync_align_chunked
-from ..kernels.demod import eq_demod_pack
+from ..kernels.demod import eq_demod_pack, equalized_symbols
+from ..obs import taps
 from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_derot_planar,
                        dft_matmul_select_planar, require_full_fp32)
 from ..ops.xcorr import MAX_TAPS, check_sync_dtype, locking_sync_offset
@@ -177,13 +178,19 @@ def _stream_front(chunks: torch.Tensor, *, guard_bands: bool,
     return yr, yi, h_k, f_delta, rotated
 
 
+def _h_selected(h_k: torch.Tensor, guard_bands: bool, cfg: FrameConfig):
+    """(h_k at the selected bins, n_data, n_pilots)."""
+    sel, nd, n_pilots = _selected_bins(guard_bands, cfg)
+    return (h_k[:, device_table(np.asarray, (sel,), torch.long, h_k.device)],
+            nd, n_pilots)
+
+
 def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
           phase: torch.Tensor, *, guard_bands: bool, modulation: Modulation,
           cfg: FrameConfig, blocks: torch.Tensor | None = None) -> torch.Tensor:
     """``eq_demod_pack`` on the DFT planes, with h_k at the selected bins and
     ``phase`` the per-chunk CFO rate (f_delta, or zeros after stream derot)."""
-    sel, nd, n_pilots = _selected_bins(guard_bands, cfg)
-    h_sel = h_k[:, device_table(np.asarray, (sel,), torch.long, h_k.device)]
+    h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
     return eq_demod_pack(yr, yi, h_sel, phase.contiguous(), n_data=nd,
                          n_pilots=n_pilots, modulation=modulation, cfg=cfg,
                          blocks=blocks)
@@ -191,9 +198,14 @@ def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
 
 def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
                    guard_bands: bool, modulation: Modulation, cfg: FrameConfig,
-                   cfo_estimator: str, diag: bool = False):
+                   cfo_estimator: str, diag: bool = False,
+                   equalized: bool = False):
     """Decode aligned f32 planes [R, 2, n_chunks * sym_len] -> (uint8
-    [R, n], diag or None).  ``derot``: "matrix" or "stream"."""
+    [R, n], diag or None).  ``derot``: "matrix" or "stream".  The bytes
+    always come from the ``eq_demod_pack`` kernel, which keeps no equalized
+    symbols; with ``equalized`` the diag's constellation is computed beside
+    it in plain torch from the same planes (``decode``'s diagnostics and
+    taps ask for it, no decode path does)."""
     sym = cfg.sym_len
     cp = planes.reshape(planes.shape[0], 2, n_chunks, sym)
     kw = dict(guard_bands=guard_bands, cfg=cfg, cfo_estimator=cfo_estimator)
@@ -208,8 +220,7 @@ def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
                 modulation=modulation, cfg=cfg)
     if not diag:
         return out, None
-    # the reference's debug taps (src/receiver.rs:41,52,58); the kernel tail
-    # keeps no equalized symbols, as on JAX's kernel tail (rx.py:361-363)
+    # the reference's debug taps (src/receiver.rs:41,52,58)
     if derot == "matrix":
         pre = torch.complex(cp[:, 0, 6], cp[:, 1, 6])
         idx = torch.arange(sym, dtype=f_delta.dtype, device=f_delta.device) \
@@ -217,12 +228,17 @@ def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
         post = pre * _phasor(f_delta[:, None] * idx)
     else:
         pre, post = chunks[:, 6], rotated[:, 6]
-    return out, {"f_delta": f_delta, "h_k": h_k, "equalized": None,
+    eq = None
+    if equalized:
+        h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
+        eq = equalized_symbols(yr, yi, h_sel, phase, n_data=nd,
+                               n_pilots=n_pilots, cfg=cfg)
+    return out, {"f_delta": f_delta, "h_k": h_k, "equalized": eq,
                  "chunk6_pre": pre, "chunk6_post": post}
 
 
 def _unflatten_diag(d: dict, lead: tuple) -> dict:
-    return {k: None if v is None else v.reshape(*lead, *v.shape[1:])
+    return {k: None if v is None else v.reshape((*lead, *v.shape[1:]))
             for k, v in d.items()}
 
 
@@ -485,7 +501,8 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
 
 def decode(samples, guard_bands: bool = False,
            modulation: Modulation = Modulation.BPSK,
-           cfg: FrameConfig = DEFAULT_CONFIG, device=None) -> np.ndarray:
+           cfg: FrameConfig = DEFAULT_CONFIG, device=None,
+           return_diagnostics: bool = False):
     """Reference-parity decode of one 1-D stream (src/receiver.rs:8-96):
     returns the payload bytes as a numpy uint8 array.
 
@@ -499,6 +516,16 @@ def decode(samples, guard_bands: bool = False,
     short input.  ``samples``: a 1-D complex tensor or array, decoded on
     ``device``: a tensor's own device when None, else CUDA for an array
     (raises where CUDA is absent; pass ``device="cpu"`` to run on the CPU).
+
+    ``return_diagnostics=True`` returns ``(payload, diag)``: numpy arrays of
+    this one stream, ``chunk6_pre`` and ``chunk6_post`` (the 7th chunk
+    before and after derotation, complex64 [sym_len]), ``h_k`` (complex64
+    [n_fft]), ``equalized`` (the data symbols the tail decided on,
+    complex64), ``f_delta`` (0-d float32) and the int ``offset``.  With
+    ``obs.taps`` enabled the four signals are also written under the
+    reference's tap names (src/receiver.rs:41,52,58,76).  Only then is
+    ``equalized`` computed, in plain torch beside the kernel tail; a plain
+    call launches nothing more than before.
     """
     x = device_mod.as_tensor(samples, device)
     if x.dim() != 1:
@@ -538,13 +565,26 @@ def decode(samples, guard_bands: bool = False,
         offsets = torch.tensor([offset], dtype=torch.int32, device=x.device)
         planes = planar_align(_pad_last(x, sym)[None], offsets, n_chunks * sym,
                               planar=True)
-    out, _ = _decode_planes(planes, n_chunks=n_chunks, derot="stream",
-                            guard_bands=guard_bands, modulation=modulation,
-                            cfg=cfg, cfo_estimator="reference")
+    want_diag = return_diagnostics or taps.enabled()
+    out, diag = _decode_planes(planes, n_chunks=n_chunks, derot="stream",
+                               guard_bands=guard_bands, modulation=modulation,
+                               cfg=cfg, cfo_estimator="reference",
+                               diag=want_diag, equalized=want_diag)
+    if want_diag:
+        diag = {k: v[0].cpu().numpy() for k, v in diag.items()}
+    if taps.enabled():
+        taps.tap("preq_correction_3a", diag["chunk6_pre"])
+        taps.tap("post_correction_3a", diag["chunk6_post"])
+        taps.tap("hk_estimate_3a", diag["h_k"])
+        taps.tap("no_phaseoffset", diag["equalized"])
     raw_bytes = out[0].cpu().numpy()
     if raw_bytes.shape[-1] < HEADER_LEN:
         raise DecodeError("decoded stream shorter than header")
     header = Header.from_bytes(raw_bytes[:HEADER_LEN].tobytes())
     # Vec::truncate caps at the available length
     n = min(header.packet_length, raw_bytes.shape[-1] - HEADER_LEN)
-    return raw_bytes[HEADER_LEN:HEADER_LEN + n]
+    payload = raw_bytes[HEADER_LEN:HEADER_LEN + n]
+    if return_diagnostics:
+        diag["offset"] = offset
+        return payload, diag
+    return payload

@@ -85,6 +85,13 @@ def blocks_to_samples(blocks: torch.Tensor,
     return prefixed.reshape(*prefixed.shape[:-2], -1)
 
 
+def peak_normalize(stream: torch.Tensor) -> torch.Tensor:
+    """Divide each frame row by its max positive real/imag component
+    (src/transmitter.rs:183-194 takes max(re, im) without abs)."""
+    m = torch.maximum(stream.real.amax(-1), stream.imag.amax(-1))
+    return stream / m[..., None]
+
+
 @lru_cache(maxsize=None)
 def _pilot_time_cp(cfg: FrameConfig) -> np.ndarray:
     """Time waveform of the constant pilot tones, with its cyclic prefix."""
@@ -140,7 +147,7 @@ def _bytes_on(data, device) -> torch.Tensor:
     if isinstance(data, (bytes, bytearray)):
         host = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     else:
-        host = torch.as_tensor(np.asarray(data, dtype=np.uint8))
+        host = torch.as_tensor(np.array(data, dtype=np.uint8))   # a writable copy
     return host.to(device_mod.resolve(device))
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import ofdm_tpu_torch as ott
+from ofdm_tpu_torch.ops.fft import set_full_fp32
 
 torch.set_num_threads(1)
 
@@ -73,8 +74,7 @@ def test_a_tensor_keeps_its_device(no_cuda):
 def test_host_input_goes_to_cuda_by_default():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_full_fp32()
     tx = _encode(PAYLOAD)
     assert tx.device.type == "cuda"
     rx = torch.cat([torch.zeros(7, dtype=tx.dtype, device=tx.device), tx])

@@ -80,12 +80,56 @@ with SampleFeed(to_host(b) for b in bufs) as feed:
     served = list(serve(double_buffered(feed, Uploader("cpu")), 2, in_flight=1))
 assert [s.index for s in served] == [0, 1]
 assert all(s.ok.all() and (s.pixels == pixels[s.index]).all() for s in served)
+# the application layer: every app's main, the diagnostics, the small modules
+import contextlib, io, os, tempfile
+from ofdm_tpu_torch.apps import (ber_sweep, datatoframe, lab3a, lab3b,
+                                 lab3b_image, lab3c, lab3c_image, monitor, probe,
+                                 stream_bytes, transmitloop)
+from ofdm_tpu_torch.core import bitops
+from ofdm_tpu_torch.obs import ber_theory, plots, profiler, taps
+from ofdm_tpu_torch.ops import shift, stats
+from ofdm_tpu_torch.ops.convolve import convolve_fft
+from ofdm_tpu_torch.ops.xcorr import xcorr_fft
+cpu = ["--device", "cpu"]
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()) as shown:
+    os.chdir(tmp)
+    runs = [(probe, cpu), (lab3a, ["--msg-bytes", "60", "--guard-bands", "--taps"] + cpu),
+            (lab3b, ["--msg-bytes", "60", "--guard-bands", "--seed", "1"] + cpu),
+            (lab3c, ["--transmit", "t.dat", "--msg-bytes", "60"] + cpu),
+            (lab3c, ["--receive", "t.dat", "--msg-bytes", "60"] + cpu),
+            (ber_sweep, ["--snrs", "30", "--modulations", "qpsk", "--batch", "2",
+                         "--payload", "32", "--json"] + cpu),
+            (ber_sweep, ["--awgn-theory", "--snrs", "8", "--modulations", "qpsk"] + cpu),
+            (monitor, ["--buffers", "1", "--no-clear"] + cpu), (datatoframe, []),
+            (lab3b_image, ["--snr", "28", "--seed", "3"] + cpu),
+            (lab3c_image, ["--transmit", "i.dat"] + cpu),
+            (lab3c_image, ["--receive", "i.dat", "--out-bytes", "i.bytes"] + cpu),
+            (stream_bytes, ["--out-dir", "sb"] + cpu),
+            (rx_stream, ["--files", "sb/tx_dance0.dat"] + cpu),
+            (transmitloop, ["--iterations", "2", "--out", "loop.dat"] + cpu)]
+    for app, args in runs:
+        assert app.main(args) == 0, (app.__name__, args)
+    assert len(os.listdir("data/simulated")) == 12 and not taps.enabled()
+    with profiler.trace("trace"), profiler.annotate("a"), profiler.timed("t"):
+        _, diag = ott.decode(rx, guard_bands=True, modulation=ott.Modulation.QAM16,
+                             return_diagnostics=True)
+    assert os.path.getsize("trace/trace.json") > 0 and diag["h_k"].shape == (64,)
+    os.chdir("/")
+assert "decode ok" in shown.getvalue() and "I met a traveller" in shown.getvalue()
+bits = bitops.bytes_to_bits(data)
+assert torch.equal(bitops.bits_to_bytes(bits), data)
+assert int(stats.idmax(shift.fft_shift(tx))) >= 0 and ber_theory.q_func(0.0) == 0.5
+assert int(xcorr_fft(tx[:80], tx[:80])[0]) == 79 and convolve_fft(tx, tx[:4].real).shape[0] == tx.shape[0] + 3
+assert plots.stem_plot(tx[:64].numpy())
 assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok")
 """
 
 
 def test_round_trip_without_jax():
+    """The library, the serve loop, every app's ``main`` and the small
+    modules run in a process where importing jax fails."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", ROUND_TRIP, str(ROOT)],
                           capture_output=True, text=True, timeout=300, env=env)

@@ -17,6 +17,7 @@ here also run on a host without JAX:
 """
 
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,12 +25,14 @@ import torch
 
 import ofdm_tpu_torch as ott
 from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
+from ofdm_tpu_torch.io.iqfile import read_iq
 from ofdm_tpu_torch.kernels.align import (pin_rowmajor, pin_rowmajor_reference,
                                           planar_align, planar_align_reference,
                                           sync_align, sync_align_reference)
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
+from ofdm_tpu_torch.ops.fft import set_full_fp32
 from ofdm_tpu_torch.phy.modulation import BITS_PER_SYMBOL, modulate_bytes_packed
 
 torch.set_num_threads(1)
@@ -388,8 +391,7 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phases 2-3 run this "
                     "check on the GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_full_fp32()
     return torch.device("cuda")
 
 
@@ -567,3 +569,77 @@ def test_decode_regular_on_cuda_waits_once(resync):
     assert len(syncs) == 1, syncs
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[0], user.numpy())
+
+
+# --- the frozen captures and the decode diagnostics on the card ---------------
+
+GOLDEN = Path(__file__).resolve().parent / "golden"
+CAPTURES = {"rx_capture_qam64": Modulation.QAM64,
+            "torch_capture_qam256": Modulation.QAM256,
+            "torch_capture_bpsk_gb": Modulation.BPSK}
+
+
+def _capture(name):
+    """(rows complex64 [R, T], bytes JAX's decode_frame gave [R, n], n_blocks,
+    the payload JAX's decode gave for row 0) of a frozen capture."""
+    if name == "rx_capture_qam64":
+        exp = np.load(GOLDEN / "rx_capture_expected.npz")
+        rows = read_iq(GOLDEN / f"{name}.dat", dtype=np.complex64)[None]
+        return rows, exp["decoded"][None], int(exp["n_blocks"]), exp["payload"]
+    exp = np.load(GOLDEN / f"{name}.npz")
+    rows = read_iq(GOLDEN / f"{name}.dat", dtype=np.complex64).reshape(
+        -1, int(exp["row_len"]))
+    return rows, exp["decoded"], int(exp["n_blocks"]), exp["decode_payload"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CAPTURES)
+def test_frozen_capture_decode_frame_on_cuda(name):
+    """Covered on the card by chip_smoke.py phase 13: the bytes the JAX
+    package decoded, as stored and tiled to 256 rows (the headline batch,
+    so cuBLAS picks that shape's GEMM)."""
+    dev = _cuda()
+    rows, decoded, nb, _ = _capture(name)
+    kw = dict(n_blocks=nb, guard_bands=True, modulation=CAPTURES[name])
+    x = torch.as_tensor(rows).to(dev)
+    want = torch.as_tensor(decoded).to(dev)
+    assert torch.equal(ott.decode_frame(x, **kw), want)
+    reps = 256 // x.shape[0]
+    assert torch.equal(ott.decode_frame(x.repeat(reps, 1), **kw),
+                       want.repeat(reps, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CAPTURES)
+def test_decode_diagnostics_on_cuda(name):
+    """Covered on the card by chip_smoke.py phase 13: row 0 through
+    ``decode(return_diagnostics=True)`` on the card gives the payload JAX
+    gave, and the CPU's offset, keys, shapes and (to 1e-4) signals."""
+    dev = _cuda()
+    rows, _, _, payload = _capture(name)
+    kw = dict(guard_bands=True, modulation=CAPTURES[name],
+              return_diagnostics=True)
+    want, wdiag = ott.decode(rows[0], device="cpu", **kw)
+    got, diag = ott.decode(rows[0], device=dev, **kw)
+    np.testing.assert_array_equal(got, payload)
+    np.testing.assert_array_equal(got, want)
+    assert diag["offset"] == wdiag["offset"] and set(diag) == set(wdiag)
+    for key, w in wdiag.items():
+        if key == "offset":
+            continue
+        assert diag[key].shape == w.shape and diag[key].dtype == w.dtype, key
+        np.testing.assert_allclose(diag[key], w, rtol=0,
+                                   atol=1e-4 * max(np.abs(w).max(), 1e-3))
+
+
+@pytest.mark.gpu
+def test_plain_decode_launches_what_it_did():
+    """A plain ``decode`` on the card launches K1 once and K2 once, with or
+    without the diagnostics asked for (they are computed in plain torch)."""
+    dev = _cuda()
+    rows, _, _, _ = _capture("torch_capture_qam256")
+    for diag in (False, True):
+        sync_align.launches = eq_demod_pack.launches = 0
+        ott.decode(rows[0], guard_bands=True, modulation=Modulation.QAM256,
+                   device=dev, return_diagnostics=diag)
+        assert (sync_align.launches, eq_demod_pack.launches) == (1, 1), diag

@@ -163,8 +163,8 @@ def test_rx_stream_files(tmp_path):
     """--files replays fc32 captures of the app's own frame."""
     import ofdm_tpu_torch as ott
     from ofdm_tpu_torch.io.feed import synthetic_captures
-    image = np.random.default_rng(rx_stream.IMAGE_SEED).integers(
-        0, 256, 576, dtype=np.uint8)
+    from ofdm_tpu_torch.apps.common import seeded_image
+    image = seeded_image(24, 24)
     frame = to_host(ott.encode(rs.encode_stream(image), guard_bands=True,
                                modulation=ott.Modulation.QPSK, device="cpu"))
     paths = []
