@@ -6,7 +6,7 @@
 Builds the host code under native/ (the RS codec and the IQ loader, with
 make, before the port is imported: its RS module loads the codec at
 import), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
-source, all at once), and runs fourteen phases:
+source, all at once), and runs fifteen phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -109,10 +109,33 @@ source, all at once), and runs fourteen phases:
      (CUDA events, median of 30), every batch byte-gated in the same run;
      profiler.trace around two decode_frame steps (the chrome trace names
      K1's and K2's kernels), timed and annotate.
+ 15. parallel/ on a world-size-1 NCCL group and a (1, 1) mesh on cuda:0 (the
+     card host has one card, and NCCL takes one rank per card), at full
+     width: decode_frame_sharded on the clean and CFO headline batches (K1
+     1 + K2 1 each), decode_frame_planar_sharded on contiguous planes (K1 +
+     K2), on the strided view (K5 + K1 + K2) and chunked (K4 + K2), each
+     byte-equal to decode_frame; decode_frame_timesharded on both batches
+     (sync_keys 1 + K3 1 each), byte-equal on the clean batch and on the
+     CFO rows both decode exactly; sync_keys against its plain version at
+     the headline's haloed shard (lags equal, power within 1e-6 relative);
+     the time-sharded channel without noise within 1e-5 of np.convolve in
+     float64 on the host; decode_regular_sharded at config 4 (K3 1 + K1 1 + K2 1,
+     decode_regular's bytes, one synchronizing call); decode_burst_sharded
+     on phase 10's frames (decode_burst's); make_pipeline_step at 256 x
+     8,192 B QAM64, SNR 45, timing error: 0 bit errors, sync_keys 1 + K3 1,
+     no all_gather; the same step at the same width in a one-rank NCCL world
+     of ``parallel.dist_worker`` (its default route, started by
+     tests/test_torch_world.py's ``World``): 0 bit errors, sync_keys 1 + K3
+     1 a step.  Each sharded call beside its single-device counterpart in
+     ms/step and device busy.  Then the pipeline step in 1- and 2-process
+     gloo worlds on the host's CPU: 0 bit errors and the wall time per
+     step, labelled "CPU, gloo" (a check of the mechanism, not a scaling
+     point).
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
-limit, one JSON object describing each kernel, and
+limit, one JSON object describing each kernel (the five and ``sync_keys``,
+K1's correlation pass as the time-sharded sync), and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -134,6 +157,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -194,22 +218,32 @@ from ofdm_tpu_torch.io import capture as capture_mod  # noqa: E402
 from ofdm_tpu_torch.io import iqfile, serving  # noqa: E402
 from ofdm_tpu_torch.io.feed import SampleFeed, double_buffered  # noqa: E402
 from ofdm_tpu_torch.kernels import _build  # noqa: E402
-from ofdm_tpu_torch.kernels.align import (pin_rowmajor,  # noqa: E402
-                                          pin_rowmajor_reference, planar_align,
-                                          planar_align_reference, sync_align,
-                                          sync_align_reference)
+from ofdm_tpu_torch.kernels.align import (key_lag, key_power,  # noqa: E402
+                                          pin_rowmajor, pin_rowmajor_reference,
+                                          planar_align, planar_align_reference,
+                                          sync_align, sync_align_reference,
+                                          sync_keys, sync_keys_reference)
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
 from ofdm_tpu_torch.obs import ber_theory, profiler  # noqa: E402
+from ofdm_tpu_torch.obs.analysis import bit_errors  # noqa: E402
 from ofdm_tpu_torch.obs.logging import set_up_logging  # noqa: E402
 from ofdm_tpu_torch.ops.fft import set_full_fp32  # noqa: E402
+from ofdm_tpu_torch.parallel import halo as halo_mod  # noqa: E402
+from ofdm_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from ofdm_tpu_torch.parallel.pipeline import (  # noqa: E402
+    decode_burst_sharded, decode_frame_planar_sharded, decode_frame_sharded,
+    decode_regular_sharded, make_pipeline_step)
+from ofdm_tpu_torch.parallel.timeshard import (  # noqa: E402
+    channel_timesharded_fn, decode_frame_timesharded)
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
 from ofdm_tpu_torch.packets.colors import id_to_rgb  # noqa: E402
 from ofdm_tpu_torch.phy import streaming as streaming_mod  # noqa: E402
 from ofdm_tpu_torch.phy.streaming import coded_len  # noqa: E402
 from ofdm_tpu_torch.phy.modulation import (BITS_PER_SYMBOL,  # noqa: E402
                                             modulate_bytes_packed)
+from tests import test_torch_world as world_mod  # noqa: E402  (the launcher)
 
 BATCH = 256
 PAYLOAD = 8192
@@ -264,6 +298,26 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+LAUNCH_REPS = 100
+
+
+def launch_ms(fn, reps: int = LAUNCH_REPS) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    back-to-back calls (after a warm-up), over ``reps``.  For a call whose
+    device work outlasts its host enqueue, the queue never drains, so
+    this is its device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, sessions: int = 15) -> dict:
     """Device time of each kernel one call of ``fn`` runs, from torch.profiler
     (CUPTI): one call per profiler session, and the session whose total is
@@ -294,7 +348,7 @@ def device_ms(fn, sessions: int = 15) -> dict:
 KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
            "planar_align": planar_align,
            "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor}
+           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys}
 
 
 def counted(fn):
@@ -557,8 +611,9 @@ def ham_frames(gen, dev, n: int):
     return data, ott.encode_hamming(data, guard_bands=True, modulation=MOD)
 
 
-def phase_streaming(gen, dev, name_limit: str) -> None:
-    """Phases 9-11: stream decoding at config 4 (see the module docstring)."""
+def phase_streaming(gen, dev, name_limit: str) -> dict:
+    """Phases 9-11: stream decoding at config 4 (see the module docstring).
+    Returns the config-4 stream and the burst stream for phase 15."""
     cfg = ott.DEFAULT_CONFIG
     plen = coded_len(HAM_BYTES, "hamming")
     nb = ott.n_data_blocks(plen, MOD, True)
@@ -702,6 +757,8 @@ def phase_streaming(gen, dev, name_limit: str) -> None:
     print(f"phase 11 planar_align shared stream ({HAM_FRAMES} rows of {flen} "
           f"from T={need}): {k3:.4f} ms/call, plain {k3_plain:.4f}, bound "
           f"{k3_bound:.4f} (bytes), share {k3_bound / k3:.3f} on {name_limit}")
+    return {"stream": s, "want": want, "kw": kw, "burst": bs, "burst_kw": bkw,
+            "burst_found": found}
 
 
 def median_s(fn, reps: int = 10) -> float:
@@ -1293,6 +1350,287 @@ def phase_apps(dev, name_limit: str) -> None:
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# the 1-process and 2-process CPU worlds of the pipeline step (gloo):
+# per-rank batch, payload and steps
+CPU_WORLD_ROWS = 8
+CPU_WORLD_PAYLOAD = 64
+CPU_WORLD_STEPS = 11
+
+
+def cpu_worlds(name_limit: str) -> None:
+    """The pipeline step in a 1-process world (mesh 1 x 1) and in 2-process
+    worlds (2 x 1 with twice the rows, 1 x 2 with the same rows), gloo on
+    the host's CPU: the mechanism across a process boundary, and each
+    world's wall time per step (median of the steps after the first).  At
+    this size Python and localhost overheads make up the step, and the CPU
+    is shared: the times are no scaling point."""
+    rng = np.random.default_rng(SEED)
+    kw = dict(payload_len=CPU_WORLD_PAYLOAD, guard_bands=True,
+              modulation="qpsk", snr=30.0, timing_error=True, seed=3,
+              steps=CPU_WORLD_STEPS)
+    for n_procs, mesh, rows in ((1, (1, 1), CPU_WORLD_ROWS),
+                                (2, (2, 1), 2 * CPU_WORLD_ROWS),
+                                (2, (1, 2), CPU_WORLD_ROWS)):
+        data = rng.integers(0, 256, (rows, CPU_WORLD_PAYLOAD), dtype=np.uint8)
+        spec = {"cases": [dict(name="pipe", kind="pipeline", mesh=list(mesh),
+                               kw=kw)]}
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            reports, outputs = world_mod.World(
+                spec, {"pipe/data": data}, n_procs, tmp,
+                device="cpu").wait(timeout=240)
+            wall = time.perf_counter() - t0
+        decoded = world_mod.rows(reports, outputs, "pipe", "decoded")
+        errs = world_mod.replicated(reports, outputs, "pipe", "errs")
+        check(errs.tolist() == [0] * CPU_WORLD_STEPS and np.array_equal(
+            decoded[:, 16:16 + CPU_WORLD_PAYLOAD], data),
+              f"CPU world {mesh}: bit errors {errs.tolist()}")
+        steps = np.stack([o["pipe/step_s"] for o in outputs])
+        ms = float(np.median(steps[:, 1:].max(axis=0))) * 1e3
+        inv = reports[0]["cases"]["pipe"]["counts"]
+        print(f"phase 15 CPU, gloo: {n_procs} process(es), mesh {mesh}, "
+              f"{rows} x {CPU_WORLD_PAYLOAD} B QPSK pipeline steps: 0 bit "
+              f"errors in {CPU_WORLD_STEPS} steps, {ms:.4f} ms/step (wall, "
+              f"median of {CPU_WORLD_STEPS - 1} after the first, slowest "
+              f"rank); rank 0's collectives over the steps {inv}; world "
+              f"{wall:.1f} s with start-up; host of {name_limit}")
+
+
+# the one-rank NCCL world of the pipeline step: steps in the worker
+NCCL_WORLD_STEPS = 5
+
+
+def nccl_world(name_limit: str, data: np.ndarray) -> None:
+    """The pipeline step at the headline width in a one-rank world of
+    ``parallel.dist_worker`` on its default route (NCCL, cuda:0), in a
+    process of its own: 0 bit errors and the payloads back in every step,
+    sync_keys 1 + K3 1 a step by the worker's own counters, and no
+    all_gather."""
+    kw = dict(payload_len=PAYLOAD, guard_bands=True, modulation=MOD.value,
+              snr=SNR, timing_error=True, seed=SEED, steps=NCCL_WORLD_STEPS)
+    spec = {"cases": [dict(name="pipe", kind="pipeline", mesh=[1, 1], kw=kw)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        reports, outputs = world_mod.World(spec, {"pipe/data": data}, 1,
+                                           tmp).wait(timeout=300)
+        wall = time.perf_counter() - t0
+    rep = reports[0]["cases"]["pipe"]
+    errs = outputs[0]["pipe/errs"]
+    check(reports[0]["world"] == 1 and errs.tolist() == [0] * NCCL_WORLD_STEPS
+          and np.array_equal(outputs[0]["pipe/decoded"][:, 16:16 + PAYLOAD],
+                             data), f"NCCL world: bit errors {errs.tolist()}")
+    check(rep["launches"] == launches(sync_keys=NCCL_WORLD_STEPS,
+                                      planar_align=NCCL_WORLD_STEPS),
+          f"NCCL world launched {rep['launches']}")
+    check(rep["counts"]["all_gather"]["calls"] == 0,
+          f"NCCL world collectives {rep['counts']}")
+    ms = float(np.median(outputs[0]["pipe/step_s"][1:])) * 1e3
+    print(f"phase 15 dist_worker, one rank on its default route (NCCL, "
+          f"cuda:0), {BATCH} x {PAYLOAD} B QAM64 pipeline steps: 0 bit errors "
+          f"in {NCCL_WORLD_STEPS} steps, payloads exact; worker launches "
+          f"{rep['launches']}; collectives {rep['counts']}; {ms:.4f} ms/step "
+          f"(wall, median of {NCCL_WORLD_STEPS - 1} after the first, each "
+          f"ending in its error count's fetch); world {wall:.1f} s with "
+          f"start-up on {name_limit}")
+
+
+def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
+    """Phase 15: parallel/ on the card (see the module docstring).  Returns
+    the sync_keys entry's measurements for the kernels line."""
+    t_phase = time.perf_counter()
+    cfg = ott.DEFAULT_CONFIG
+    mesh = make_mesh(1, 1, device_type="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"world {dist.get_backend()} x {dist.get_world_size()}")
+    print(f"phase 15 world: {dist.get_world_size()} rank, backend "
+          f"{dist.get_backend()}, mesh {tuple(mesh.mesh.shape)} "
+          f"{mesh.mesh_dim_names} on {torch.cuda.current_device()}")
+    rx_clean, rx_cfo, data = head["rx_clean"], head["rx_cfo"], head["data"]
+    kw = dict(n_blocks=head["nb"], guard_bands=True, modulation=MOD)
+    want = {"clean": head["out_clean"], "CFO": head["out_cfo"]}
+    one_each = launches(sync_align=1, eq_demod_pack=1)
+
+    # the data-sharded batch decoders: decode_frame's bytes, its launches
+    for name, x in (("clean", rx_clean), ("CFO", rx_cfo)):
+        out, n = counted(lambda: decode_frame_sharded(x, mesh, **kw))
+        check(n == one_each, f"decode_frame_sharded {name} launched {n}")
+        check(torch.equal(out, want[name]), f"decode_frame_sharded {name}: "
+              "bytes differ from decode_frame's")
+        print(f"phase 15 decode_frame_sharded {name} ({BATCH} x {PAYLOAD} B "
+              f"QAM64, T={x.shape[1]}): bytes equal decode_frame's; launches {n}")
+    for label, planes, extra, n_want in (
+            ("contiguous planes", head["planes_in"], {}, one_each),
+            ("strided view", head["view"], {},
+             launches(pin_rowmajor=1, sync_align=1, eq_demod_pack=1)),
+            ("chunked", head["planes_in"], dict(align_impl="chunked"),
+             launches(sync_align_chunked=1, eq_demod_pack=1))):
+        out, n = counted(lambda: decode_frame_planar_sharded(planes, mesh,
+                                                             **kw, **extra))
+        check(n == n_want, f"decode_frame_planar_sharded {label} launched {n}")
+        check(torch.equal(out, want["clean"]), f"decode_frame_planar_sharded "
+              f"{label}: bytes differ from decode_frame's")
+        print(f"phase 15 decode_frame_planar_sharded {label}: bytes equal "
+              f"decode_frame's; launches {n}")
+
+    # the time-sharded decode: sync_keys + K3, bytes decode_frame's
+    ts_want = launches(sync_keys=1, planar_align=1)
+    (ts_clean, ts_cfo), n_ts = counted(lambda: (
+        decode_frame_timesharded(rx_clean, mesh, **kw),
+        decode_frame_timesharded(rx_cfo, mesh, **kw)))
+    check(n_ts == launches(sync_keys=2, planar_align=2),
+          f"decode_frame_timesharded x2 launched {n_ts}")
+    check(torch.equal(ts_clean, want["clean"]), "decode_frame_timesharded "
+          "clean: bytes differ from decode_frame's")
+    n = data.shape[1]
+    both = ((ts_cfo[:, 16:16 + n] == data).all(1)
+            & (want["CFO"][:, 16:16 + n] == data).all(1))
+    check(int(both.sum()) >= 0.95 * BATCH and torch.equal(
+        ts_cfo[both], want["CFO"][both]), f"decode_frame_timesharded CFO: "
+          f"{int(both.sum())} rows exact on both paths")
+    print(f"phase 15 decode_frame_timesharded: clean bytes equal "
+          f"decode_frame's; CFO bytes equal on the {int(both.sum())}/{BATCH} "
+          f"rows both decode exactly; launches {n_ts}")
+
+    # sync_keys against its plain version at the headline's haloed shard
+    t = rx_clean.shape[1]
+    template = constants.locking_for(cfg)
+    ext = torch.cat([rx_clean, rx_clean.new_zeros((BATCH, cfg.sym_len - 1))], 1)
+    keys = sync_keys(ext, template, t)
+    keys_ref = sync_keys_reference(ext, template, t)
+    torch.cuda.synchronize()
+    check(torch.equal(key_lag(keys), key_lag(keys_ref)),
+          f"sync_keys: lags differ on {int((keys != keys_ref).sum())} rows")
+    p, p_ref = key_power(keys), key_power(keys_ref)
+    rel = float(((p - p_ref).abs() / p_ref).max())
+    check(rel <= 1e-6, f"sync_keys: power differs by {rel:.3e} relative")
+    keys_err = float((p - p_ref).abs().max())
+    _, raw = sync_align(rx_clean, template, t - 80, planar=True)
+    check(torch.equal(key_lag(keys), raw.long() + 1),
+          "sync_keys' lags differ from sync_align's offsets + 1")
+    print(f"phase 15 sync_keys at [{BATCH}, {ext.shape[1]}], lag_bound {t}: "
+          f"lags equal plain's and sync_align's offsets + 1, power within "
+          f"{rel:.3e} relative (max abs {keys_err:.3e})")
+
+    # the time-sharded channel without noise: a float64 convolution on the
+    # host, independent of the port's
+    tx = pad_rows(ott.encode(data, guard_bands=True, modulation=MOD), t)
+    conv = channel_timesharded_fn(mesh, snr=None, timing_error=False)(tx, 0)
+    tx_h, conv_h = tx.cpu().numpy(), conv.cpu().numpy()
+    taps_h = np.asarray(constants.CHANNEL_TAPS, np.float64)
+    conv_err = max(float(np.abs(conv_h[r] - np.convolve(
+        tx_h[r].astype(np.complex128), taps_h)[:t]).max()) for r in range(BATCH))
+    check(conv_err <= 1e-5, f"time-sharded channel differs by {conv_err}")
+    print(f"phase 15 channel_timesharded_fn (no noise, no CFO) on [{BATCH}, "
+          f"{t}]: within {conv_err:.3e} of np.convolve in float64 on the host")
+
+    # stream decoding at config 4 and the burst stream of phase 10
+    s, rkw = streams["stream"], dict(streams["kw"])
+    reg, n_reg = counted(lambda: decode_regular_sharded(s, mesh, **rkw))
+    check(n_reg == launches(planar_align=1, sync_align=1, eq_demod_pack=1),
+          f"decode_regular_sharded launched {n_reg}")
+    single = ott.decode_regular(s, **rkw, resync=True)
+    check(np.array_equal(reg[0], single[0]) and np.array_equal(
+        reg[0], streams["want"]) and reg[1].all(),
+          "decode_regular_sharded differs from decode_regular")
+    _, n_sync = host_syncs(lambda: decode_regular_sharded(s, mesh, **rkw))
+    check(n_sync == 1, f"decode_regular_sharded: {n_sync} synchronizing calls")
+    print(f"phase 15 decode_regular_sharded at config 4 ({HAM_FRAMES} x "
+          f"{HAM_BYTES} B Hamming, T={s.shape[0]}): equals decode_regular, 0 "
+          f"byte errors; launches {n_reg}; synchronizing calls {n_sync}")
+    bs, bkw = streams["burst"], streams["burst_kw"]
+    found, n_burst = counted(lambda: decode_burst_sharded(bs, mesh, **bkw))
+    check(n_burst == launches(planar_align=1, eq_demod_pack=1),
+          f"decode_burst_sharded launched {n_burst}")
+    ref = streams["burst_found"]
+    check(len(found) == len(ref) == BURST_FRAMES and all(
+        f[0] == r[0] and np.array_equal(f[1], r[1]) and f[2] == r[2]
+        for f, r in zip(found, ref)), "decode_burst_sharded differs from "
+          "decode_burst")
+    print(f"phase 15 decode_burst_sharded on phase 10's {BURST_FRAMES} frames: "
+          f"decode_burst's positions and bytes; launches {n_burst}")
+
+    # the pipeline step at the headline width
+    step = make_pipeline_step(mesh, payload_len=PAYLOAD, guard_bands=True,
+                              modulation=MOD, snr=SNR, timing_error=True)
+    pgen = torch.Generator().manual_seed(SEED)
+    (decoded, errs), n_pipe = counted(lambda: step(data, pgen))
+    check(n_pipe == ts_want, f"pipeline step launched {n_pipe}")
+    check(int(errs[0]) == 0 and torch.equal(decoded[:, 16:16 + PAYLOAD], data),
+          f"pipeline step: {int(errs[0])} bit errors")
+    halo_mod.reset_counts()
+    step(data, pgen)
+    inv = halo_mod.counts()
+    check(inv["all_gather"]["calls"] == 0 and inv["all_reduce"]["calls"] == 6,
+          f"pipeline step collectives {inv}")
+    print(f"phase 15 make_pipeline_step: {BATCH} x {PAYLOAD} B QAM64, SNR "
+          f"{SNR}, timing error: 0 bit errors, payloads exact; launches "
+          f"{n_pipe}; collectives per step {inv}")
+    nccl_world(name_limit, data.cpu().numpy())
+
+    # timing: each sharded call beside its single-device counterpart
+    sgen = torch.Generator(dev).manual_seed(SEED)
+    frame = rx_clean.shape[1]
+
+    def single_step():
+        tx_ = ott.encode(data, guard_bands=True, modulation=MOD)
+        rx_ = pad_rows(ott.channel(tx_, snr=SNR, timing_error=True,
+                                   generator=sgen), frame)
+        out = ott.decode_frame(rx_, **kw)
+        return bit_errors(out[:, 16:16 + PAYLOAD], data).sum()
+
+    pairs = [
+        ("decode_frame_sharded", lambda: decode_frame_sharded(rx_clean, mesh, **kw),
+         "decode_frame", lambda: ott.decode_frame(rx_clean, **kw)),
+        ("decode_frame_planar_sharded",
+         lambda: decode_frame_planar_sharded(head["planes_in"], mesh, **kw),
+         "decode_frame_planar",
+         lambda: ott.decode_frame_planar(head["planes_in"], **kw)),
+        ("decode_frame_timesharded",
+         lambda: decode_frame_timesharded(rx_clean, mesh, **kw),
+         "decode_frame", lambda: ott.decode_frame(rx_clean, **kw)),
+        ("decode_regular_sharded",
+         lambda: decode_regular_sharded(s, mesh, **rkw),
+         "decode_regular resync",
+         lambda: ott.decode_regular(s, **rkw, resync=True)),
+        ("decode_burst_sharded", lambda: decode_burst_sharded(bs, mesh, **bkw),
+         "decode_burst", lambda: ott.decode_burst(bs, **bkw)),
+        ("pipeline step (T=38,160 a row)", lambda: step(data, pgen),
+         "encode + channel + decode_frame + bit errors (T=19,120 a row)",
+         single_step),
+    ]
+    print(f"phase 15 timing on {name_limit} (world of 1, NCCL; CUDA events, "
+          f"median of {REPS}; device busy from torch.profiler):")
+    for sharded_name, sharded_fn, single_name, single_fn in pairs:
+        for label, fn in ((sharded_name, sharded_fn), (single_name, single_fn)):
+            ms = time_ms(fn)
+            dk = device_ms(fn)
+            busy = sum(dk.values())
+            print(f"  {ms:.4f} ms/step, busy {busy:.4f}, idle share "
+                  f"{1 - busy / ms:.3f}  {label} on {name_limit}; top device "
+                  "items:")
+            for kname, kms in sorted(dk.items(), key=lambda kv: -kv[1])[:4]:
+                print(f"    {kms:.4f}  {kname[:100]}")
+    # sync_keys' device time: CUDA events around back-to-back launches (its
+    # first kernel opens a profiler session, where the profiler loses it),
+    # with K1 beside it, timed the same way, as a yardstick
+    keys_ms = launch_ms(lambda: sync_keys(ext, template, t))
+    keys_plain_ms = launch_ms(lambda: sync_keys_reference(ext, template, t))
+    k1_ms = launch_ms(lambda: sync_align(rx_clean, template, t - 80,
+                                         planar=True))
+    print(f"phase 15 sync_keys device time {keys_ms:.4f} ms/call, plain "
+          f"{keys_plain_ms:.4f}, sync_align {k1_ms:.4f} (CUDA events around "
+          f"{LAUNCH_REPS} back-to-back calls) on {name_limit}")
+    r = ext.shape[0]
+    flops = r * t * len(template) * 2 * 2 * (
+        1 if not np.any(np.asarray(template).imag) else 2)
+    keys_bound = bound(flops, ext.numel() * 8 + r * 8)
+    cpu_worlds(name_limit)
+    dist.destroy_process_group()
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": keys_ms, "plain_ms": keys_plain_ms, "bound": keys_bound,
+            "launches": n_ts["sync_keys"], "max_abs_err": keys_err}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
@@ -1641,13 +1979,22 @@ def main() -> None:
               "ofdm_tpu/kernels/align_pallas.py:237",
               n_view["pin_rowmajor"], k5_err),
     ]
-    phase_streaming(gen, dev, name_limit)
+    streams = phase_streaming(gen, dev, name_limit)
     geometry = (serving.PAYLOAD_LEN, serving.N_BLOCKS, serving.FLEN,
                 serving.buffer_len())
     check(geometry == (765, 22, 2560, 1_996_960), f"config 5 geometry {geometry}")
     phase_serving(dev, name_limit, serving.N_FRAMES)
     phase_captures(dev, n_decode)
     phase_apps(dev, name_limit)
+    head = dict(rx_clean=rx_clean, rx_cfo=rx_cfo, data=data, nb=nb,
+                out_clean=out_clean, out_cfo=out_cfo, planes_in=planes_in,
+                view=view)
+    keys = phase_parallel(dev, name_limit, head, streams)
+    bounds["sync_keys"] = keys["bound"]
+    dev_ms["sync_keys"], dev_ms["sync_keys plain"] = keys["ms"], keys["plain_ms"]
+    kernels.append(entry("sync_keys", "ofdm_tpu_torch/csrc/sync_align.cu",
+                         "ofdm_tpu/parallel/timeshard.py:135-147",
+                         keys["launches"], keys["max_abs_err"]))
     for e in kernels:
         print(f"kernel {e['name']}: {e['ms']:.4f} ms/call, bound "
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}), roofline share "

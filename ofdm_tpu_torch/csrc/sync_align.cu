@@ -1,6 +1,6 @@
 // sync_align.cu: frame sync and alignment for the batched OFDM receiver.
 //
-// Three entry points, one library (they share the correlation pass and the
+// Four entry points, one library (they share the correlation pass and the
 // window copy):
 //
 //   ofdm_sync_align          K1, replaces ofdm_tpu/kernels/align_pallas.py::
@@ -9,6 +9,8 @@
 //                            (_kernel): the window copy at given offsets
 //   ofdm_sync_align_chunked  K4, replaces ofdm_tpu/kernels/chain_pallas.py::
 //                            sync_align_chunked (_sync_chunk_kernel)
+//   ofdm_sync_keys           K1's correlation pass and row reduce alone: one
+//                            packed key per row, for the time-sharded sync
 //
 // Per row r of a sample stream s[r, 0:T]:
 //
@@ -447,6 +449,51 @@ extern "C" int ofdm_planar_align(const void* in, long long row_stride,
       static_cast<const float*>(in), row_stride, plane_stride, elem_stride, t,
       static_cast<const int*>(offsets), need, static_cast<float*>(out),
       out_row, out_plane, out_elem);
+  return cudaGetLastError();
+}
+
+// Time-sharded sync (no TPU kernel: it replaces the XLA correlation and
+// argmax of ofdm_tpu/parallel/timeshard.py:135-147): kernel 1, then one
+// block per row reduces that row's partial keys to its packed key, written
+// as one uint64 per row.  No window is copied.  A rank turns the key's lag
+// into a global lag and takes the max over its time group, so the packed
+// (power bits, 0xFFFFFFFF - lag) order breaks ties to the lowest global lag.
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+row_key_kernel(const unsigned long long* __restrict__ partial, int n_partial,
+               unsigned long long* __restrict__ keys) {
+  __shared__ unsigned long long s_warp[kThreads / 32];
+  const unsigned long long* row = partial + static_cast<long long>(blockIdx.x) * n_partial;
+  unsigned long long best = 0ull;
+  for (int i = threadIdx.x; i < n_partial; i += kThreads) best = umax64(best, row[i]);
+  best = block_max<kThreads>(best, s_warp);
+  if (threadIdx.x == 0) keys[blockIdx.x] = best;
+}
+
+}  // namespace
+
+// `partial` holds rows * ofdm_sync_align_n_partial(lag_bound) uint64 of
+// scratch, `keys` rows uint64.  Strides are in floats.
+extern "C" int ofdm_sync_keys(const void* in, long long row_stride,
+                              long long plane_stride, long long elem_stride,
+                              int rows, int t, const void* tpl, int k,
+                              int real_template, int lag_bound, void* partial,
+                              void* keys, void* stream) {
+  if (rows <= 0 || t <= 0 || k <= 0 || k > kMaxTaps || lag_bound <= 0 ||
+      lag_bound > t) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_partial = ofdm_sync_align_n_partial(lag_bound);
+  if (n_partial > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<unsigned long long*>(partial);
+  cudaError_t e = launch_corr(static_cast<const float*>(in), row_stride,
+                              plane_stride, elem_stride, rows, t, tpl, k,
+                              real_template, lag_bound, n_partial, part, s);
+  if (e != cudaSuccess) return e;
+  row_key_kernel<<<rows, kThreads, 0, s>>>(part, n_partial,
+                                          static_cast<unsigned long long*>(keys));
   return cudaGetLastError();
 }
 

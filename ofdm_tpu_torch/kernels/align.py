@@ -6,7 +6,10 @@ plain versions:
   offsets computed outside (the unfused route), from rows or from one
   shared stream (stream decoding);
 - ``pin_rowmajor`` (kernel 5, ``csrc/pin_rowmajor.cu``): a row-major copy of
-  a strided view.
+  a strided view;
+- ``sync_keys`` (``sync_align.cu``, no TPU kernel): kernel 1's correlation
+  pass alone, one packed (power, lag) key per row, for the time-sharded
+  sync of ``parallel/``.
 
 ``sync_align``, replacing ``align_pallas.py::sync_align``.  Per row: correlate the
 stream with the locking template (at most 128 taps), take the first lag of
@@ -85,16 +88,23 @@ def window_strides(x: torch.Tensor):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
-def reference_offsets(flat: torch.Tensor, tpl: np.ndarray,
-                      lag_bound: int) -> torch.Tensor:
-    """The kernels' raw offsets the plain way: ``locking_sync_offset``'s
-    matmul correlation restricted to lags < lag_bound, argmax - 1 (int64)."""
+def reference_power(flat: torch.Tensor, tpl: np.ndarray,
+                    lag_bound: int) -> torch.Tensor:
+    """|c[lag]|^2 for lags < lag_bound, f32 [R, lag_bound], by
+    ``locking_sync_offset``'s matmul correlation."""
     t = flat.shape[-1]
     cplx = torch.complex(flat[:, 0], flat[:, 1]) if flat.dim() == 3 else flat
     # lags < lag_bound only read samples below lag_bound + K - 1
     c = sliding_correlation_matmul(cplx[:, :min(t, lag_bound + len(tpl) - 1)],
                                    tpl)[:, :lag_bound]
-    return torch.argmax(c.real ** 2 + c.imag ** 2, dim=-1) - 1
+    return c.real ** 2 + c.imag ** 2
+
+
+def reference_offsets(flat: torch.Tensor, tpl: np.ndarray,
+                      lag_bound: int) -> torch.Tensor:
+    """The kernels' raw offsets the plain way: ``locking_sync_offset``'s
+    matmul correlation restricted to lags < lag_bound, argmax - 1 (int64)."""
+    return torch.argmax(reference_power(flat, tpl, lag_bound), dim=-1) - 1
 
 
 def _gather_windows(flat: torch.Tensor, off: torch.Tensor, need: int,
@@ -125,7 +135,8 @@ def sync_align_reference(flat: torch.Tensor, template, need: int,
 
 @lru_cache(maxsize=None)
 def sync_lib() -> ctypes.CDLL:
-    """The ``csrc/sync_align.cu`` library (kernels 1, 3 and 4), loaded once."""
+    """The ``csrc/sync_align.cu`` library (kernels 1, 3, 4 and
+    ``sync_keys``), loaded once."""
     return declare_sync_lib(_build.library("sync_align"))
 
 
@@ -148,6 +159,10 @@ def declare_sync_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ofdm_sync_align_chunked.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
         + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
+    lib.ofdm_sync_keys.restype = ctypes.c_int
+    lib.ofdm_sync_keys.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     return lib
 
 
@@ -193,6 +208,96 @@ def sync_align(flat: torch.Tensor, template, need: int,
 
 
 sync_align.launches = 0
+
+
+KEY_LAG_MASK = 0xFFFFFFFF
+
+
+def pack_keys(power: torch.Tensor, lag: torch.Tensor) -> torch.Tensor:
+    """int64 keys (f32 bits of ``power`` << 32) | (0xFFFFFFFF - lag): for
+    power >= 0 the keys order as (power, then the SMALLER lag), the order
+    the kernels' argmax reduces in."""
+    bits = power.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return ((bits & KEY_LAG_MASK) << 32) | (KEY_LAG_MASK - lag.to(torch.int64))
+
+
+def argmax_keys(power: torch.Tensor, lag0=0) -> torch.Tensor:
+    """The packed key of the first maximum of ``power`` over its last axis,
+    its lag counted from ``lag0``."""
+    lag = torch.argmax(power, dim=-1)
+    return pack_keys(power.gather(-1, lag[..., None])[..., 0], lag + lag0)
+
+
+def key_lag(keys: torch.Tensor) -> torch.Tensor:
+    """The lag a packed key holds (int64)."""
+    return KEY_LAG_MASK - (keys & KEY_LAG_MASK)
+
+
+def key_power(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 power a packed key holds."""
+    return (keys >> 32).to(torch.int32).view(torch.float32)
+
+
+def _check_keys(flat: torch.Tensor, template, lag_bound: int):
+    """Validate the arguments of ``sync_keys``; return (rows, T, complex64
+    template)."""
+    r, t = check_input(flat, "sync_keys")
+    tpl = np.asarray(template).astype(np.complex64)
+    if tpl.ndim != 1 or not 0 < tpl.shape[0] <= MAX_TAPS:
+        raise ValueError(f"sync_keys takes a 1-D template of 1 to {MAX_TAPS} "
+                         "taps; longer ones take the conv correlation")
+    if not 0 < lag_bound <= t:
+        raise ValueError(f"lag_bound={lag_bound} must lie in [1, T={t}]")
+    return r, t, tpl
+
+
+def sync_keys_reference(flat: torch.Tensor, template,
+                        lag_bound: int) -> torch.Tensor:
+    """Plain version of ``sync_keys``: the matmul correlation's power over
+    lags < lag_bound and its first-occurrence argmax, packed."""
+    _, _, tpl = _check_keys(flat, template, lag_bound)
+    return argmax_keys(reference_power(flat, tpl, lag_bound))
+
+
+def sync_keys(flat: torch.Tensor, template, lag_bound: int) -> torch.Tensor:
+    """Per row, the packed key of the first lag of maximal correlation power
+    below ``lag_bound``: K1's correlation pass and row reduce, without the
+    window copy.
+
+    flat: complex64 [R, T] or f32 planes [R, 2, T], contiguous; samples past
+    T read as 0.  template: at most 128 taps.  Returns int64 [R] keys
+    (``pack_keys``; ``key_lag`` and ``key_power`` read them back).  The
+    time-sharded sync runs it on each haloed shard and takes the max of the
+    keys, rewritten to global lags, across the time axis
+    (``parallel/halo.py``).
+
+    A CPU tensor runs ``sync_keys_reference``; a CUDA tensor launches the
+    kernel (counted in ``sync_keys.launches``); any other device raises.
+    The kernel sums each correlation in another order than the matmul, so
+    a power may differ in its last bits and a near-exact tie may resolve
+    to the other lag (ofdm_tpu_torch/PARITY.md).
+    """
+    r, t, tpl = _check_keys(flat, template, lag_bound)
+    if flat.device.type == "cpu":
+        return sync_keys_reference(flat, tpl, lag_bound)
+    if flat.device.type != "cuda":
+        raise ValueError(f"sync_keys runs on cpu or cuda, not {flat.device}")
+    lib = sync_lib()
+    dev = flat.device
+    w = template_on(tpl, dev)
+    partial = torch.empty((r, lib.ofdm_sync_align_n_partial(lag_bound)),
+                          dtype=torch.int64, device=dev)
+    keys = torch.empty(r, dtype=torch.int64, device=dev)
+    err = lib.ofdm_sync_keys(
+        flat.data_ptr(), *window_strides(flat), r, t, w.data_ptr(), len(tpl),
+        int(_template_is_real(tpl)), lag_bound, partial.data_ptr(),
+        keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sync_keys")
+    sync_keys.launches += 1
+    return keys
+
+
+sync_keys.launches = 0
 
 
 def _is_stream(x: torch.Tensor) -> bool:

@@ -265,10 +265,12 @@ def decode_regular(samples, *, n_frames: int, spacing: int, payload_len: int,
 
 
 def _scan_windows(s: torch.Tensor, *, n_win: int, stride: int,
-                  cfg: FrameConfig):
+                  cfg: FrameConfig, first_window: int = 0):
     """Frame detection over the whole stream at once.
 
-    Window i scans candidate frame starts (lags) [i*stride, (i+1)*stride);
+    Window i (of ``first_window`` .. ``first_window + n_win - 1``: a share
+    of the windows, in ``parallel.pipeline.decode_burst_sharded``) scans
+    candidate frame starts (lags) [i*stride, (i+1)*stride);
     the argmax is masked to that range so a stronger locking block just
     outside it (the next frame's) cannot steal the detection.  Returns
     (lags [n_win] relative to each window, argmax of the power minus 1;
@@ -281,8 +283,8 @@ def _scan_windows(s: torch.Tensor, *, n_win: int, stride: int,
     k = template.shape[-1]
     wlen = stride + k - 1
     t = s.shape[-1]
-    idx = (torch.arange(n_win, device=s.device)[:, None] * stride
-           + torch.arange(wlen, device=s.device)[None, :])
+    idx = ((torch.arange(n_win, device=s.device)[:, None] + first_window)
+           * stride + torch.arange(wlen, device=s.device)[None, :])
     w = torch.where(idx < t, s[idx.clamp(max=t - 1)], 0)
     c = sliding_correlation(w, template)
     # output index i = lag i-(k-1); keep exactly the in-range lags [0, stride)

@@ -26,9 +26,11 @@ import torch
 import ofdm_tpu_torch as ott
 from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
 from ofdm_tpu_torch.io.iqfile import read_iq
-from ofdm_tpu_torch.kernels.align import (pin_rowmajor, pin_rowmajor_reference,
+from ofdm_tpu_torch.kernels.align import (key_lag, key_power, pack_keys,
+                                          pin_rowmajor, pin_rowmajor_reference,
                                           planar_align, planar_align_reference,
-                                          sync_align, sync_align_reference)
+                                          sync_align, sync_align_reference,
+                                          sync_keys, sync_keys_reference)
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
@@ -387,6 +389,67 @@ def test_new_wrappers_reject_bad_input(bad, err):
         bad(torch.as_tensor(_stream(TPL)))
 
 
+def _keys_case(name):
+    """(stream, template, lag_bound, first peak lag per row) of a K1 edge,
+    or of the headline-like stream ("real", "complex")."""
+    if name in ("real", "complex"):
+        tpl = TPL if name == "real" else TPL_C
+        return _stream(tpl), tpl, T, DELAYS
+    s, tpl, _, win, first = _k1_edge(name)
+    return s, tpl, s.shape[-1] if win is None else win + len(tpl), first
+
+
+KEY_CASES = ["real", "complex", *K1_EDGES]
+
+
+@pytest.mark.parametrize("name", KEY_CASES)
+def test_sync_keys_reference_finds_the_first_peak(name):
+    """The keys hold the first lag of maximal power (the lag whose offset,
+    lag - 1, the JAX Pallas kernel gives on these streams:
+    test_sync_align_reference_edges_match_pallas) and that lag's power."""
+    s, tpl, lag_bound, first = _keys_case(name)
+    keys = sync_keys_reference(torch.as_tensor(s), tpl, lag_bound)
+    np.testing.assert_array_equal(key_lag(keys).numpy(), first)
+    pad = np.concatenate([s, np.zeros((s.shape[0], len(tpl)), s.dtype)], axis=1)
+    want = np.array([abs(np.dot(pad[i, lag:lag + len(tpl)].astype(np.complex128),
+                                np.conj(tpl.astype(np.complex128)))) ** 2
+                     for i, lag in enumerate(first)])
+    np.testing.assert_allclose(key_power(keys).numpy(), want, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_sync_keys_on_cpu_runs_the_plain_version():
+    x = torch.as_tensor(_stream(TPL))
+    planes = torch.stack([x.real, x.imag], dim=1).contiguous()
+    before = sync_keys.launches
+    got = sync_keys(x, TPL, 1000)
+    assert torch.equal(got, sync_keys_reference(x, TPL, 1000))
+    assert torch.equal(sync_keys(planes, TPL, 1000), got)
+    assert sync_keys.launches == before
+    # the lag of each key is sync_align's raw offset + 1 over the same scan
+    _, raw = sync_align_reference(x, TPL, NEED, search_window=1000 - len(TPL))
+    assert torch.equal(key_lag(got), raw.long() + 1)
+
+
+def test_packed_keys_order_by_power_then_lowest_lag():
+    power = torch.tensor([1.0, 2.0, 2.0, 0.0, 3.5e38])
+    lag = torch.tensor([7, 9, 3, 0, 123456789])
+    keys = pack_keys(power, lag)
+    assert torch.equal(key_lag(keys), lag) and torch.equal(key_power(keys), power)
+    assert keys[2] > keys[1] > keys[0] > keys[3] and keys[4] == keys.max()
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: sync_keys(x, np.ones(129, np.complex64), 100), ValueError),
+    (lambda x: sync_keys(x, TPL, 0), ValueError),
+    (lambda x: sync_keys(x, TPL, T + 1), ValueError),
+    (lambda x: sync_keys(x.T, TPL, 100), ValueError),
+])
+def test_sync_keys_rejects_bad_input(bad, err):
+    with pytest.raises(err):
+        bad(torch.as_tensor(_stream(TPL)))
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phases 2-3 run this "
@@ -643,3 +706,23 @@ def test_plain_decode_launches_what_it_did():
         ott.decode(rows[0], guard_bands=True, modulation=Modulation.QAM256,
                    device=dev, return_diagnostics=diag)
         assert (sync_align.launches, eq_demod_pack.launches) == (1, 1), diag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", KEY_CASES)
+def test_sync_keys_kernel_matches_plain(name):
+    """The same lag on every row and the power within 1e-6 relative (the
+    kernel sums each correlation in another order); covered on the card by
+    chip_smoke.py phase 15."""
+    dev = _cuda()
+    s, tpl, lag_bound, first = _keys_case(name)
+    for planar_in in (False, True):
+        x = _as_input(s, planar_in).to(dev)
+        before = sync_keys.launches
+        got = sync_keys(x, tpl, lag_bound)
+        ref = sync_keys_reference(x, tpl, lag_bound)
+        assert sync_keys.launches == before + 1
+        assert torch.equal(key_lag(got), key_lag(ref))
+        assert key_lag(got).tolist() == list(first)
+        torch.testing.assert_close(key_power(got), key_power(ref), rtol=1e-6,
+                                   atol=0)
