@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the host code under native/ (the RS codec and the IQ loader, with
-make, before the port is imported: its RS module loads the codec at
-import), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
-source, all at once), and runs fifteen phases:
+Builds the host code under native/ (the RS codec and the IQ loader,
+``ofdm_tpu_torch.core.native.build``, which reloads the port's modules that
+load them), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
+source, all at once), and runs sixteen phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -130,7 +130,20 @@ source, all at once), and runs fifteen phases:
      ms/step and device busy.  Then the pipeline step in 1- and 2-process
      gloo worlds on the host's CPU: 0 bit errors and the wall time per
      step, labelled "CPU, gloo" (a check of the mechanism, not a scaling
-     point).
+     point);
+ 16. the port's bench as its users run it.  First K3, K1 and K2 against
+     their plain versions on the inputs that the serve step hands each of
+     them on the bench's own serving buffers (4 of 390 frames, seed 0),
+     complex and planar (torch.equal), every payload row the RS code bytes
+     that were sent.  Then ``python -m ofdm_tpu_torch.bench --seed 0`` in a
+     subprocess (bench.py's configs 2, 4 and 5 at full size), then ``--seed
+     1 --only headline``.  Each must exit 0 with every
+     gate of its line at 0, this card's nvidia-smi name and power limit,
+     100 timed steps (buffers) with a p90, and the launches per step: K1 1 +
+     K2 1 per headline step (complex and planar), K3 1 + K2 1 per config-4
+     step, K3 1 + K1 1 + K2 1 per serve step in every mode.  Its numbers
+     are printed beside phases 5 and 11's synchronized times of the same
+     steps, and its line whole.
 
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
@@ -146,7 +159,6 @@ import io
 import json
 import math
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -154,6 +166,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -163,46 +176,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 
-def native_flags(cxx: str) -> list[str]:
-    """native/Makefile's CXXFLAGS, without -fopenmp where the compiler has
-    no OpenMP runtime (its pragmas then compile as plain loops: the RS
-    codec runs on one thread per call)."""
-    flags = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
-    with tempfile.TemporaryDirectory() as tmp:
-        probe = subprocess.run([cxx, "-fopenmp", "-x", "c++", "-", "-o",
-                                str(Path(tmp) / "probe")],
-                               input="int main() { return 0; }\n",
-                               capture_output=True, text=True)
-    return flags + ["-fopenmp"] if probe.returncode == 0 else flags
-
-
-def build_native() -> tuple[float, list[str]]:
-    """Build native/ (librs_codec.so, libiq_loader.so) with make, or with
-    g++ where make is absent, and ``native_flags``; (seconds, the flags).
-    Raises where the build fails: serving on the numpy RS codec is not
-    measured."""
-    t0 = time.perf_counter()
-    native = ROOT / "native"
-    cxx = shutil.which("g++") or "g++"
-    flags = native_flags(cxx)
-    if shutil.which("make"):
-        cmds = [["make", "-j2", "-C", str(native), f"CXX={cxx}",
-                 f"CXXFLAGS={' '.join(flags)}"]]
-    else:
-        cmds = [[cxx, *flags, "-shared", "-o", str(native / f"lib{src}.so"),
-                 str(native / f"{src}.cpp")] for src in ("rs_codec", "iq_loader")]
-    for cmd in cmds:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"chip_smoke: native build failed ({' '.join(cmd)}):"
-                             f"\n{proc.stdout}{proc.stderr}")
-    return time.perf_counter() - t0, flags
-
-
-if __name__ == "__main__":
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
-    NATIVE_S, NATIVE_FLAGS = build_native()
+if __name__ == "__main__" and not torch.cuda.is_available():
+    raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
 
 import ofdm_tpu_torch as ott  # noqa: E402
 from ofdm_tpu_torch import constants  # noqa: E402
@@ -210,6 +185,10 @@ from ofdm_tpu_torch.apps import (ber_sweep, datatoframe, lab3a, lab3b,  # noqa: 
                                  lab3b_image, lab3c, lab3c_image, monitor,
                                  probe, rx_stream, stream_bytes, transmitloop)
 from ofdm_tpu_torch.apps.common import seeded_image  # noqa: E402
+from ofdm_tpu_torch.bench import (KERNELS, SRV_DISTINCT as BENCH_SRV_DISTINCT,  # noqa: E402
+                                  SRV_FRAMES as BENCH_SRV_FRAMES, card,
+                                  device_ms, median_s, reset_launches)
+from ofdm_tpu_torch.core import native  # noqa: E402
 from ofdm_tpu_torch.core.transfer import (Uploader, fetch_async,  # noqa: E402
                                           to_device_planar)
 from ofdm_tpu_torch.fec import hamming  # noqa: E402
@@ -276,14 +255,10 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median milliseconds per call, CUDA events around each call."""
+    """Median milliseconds per call, CUDA events around each call, the host
+    waiting for each call's end before it issues the next (the bench's
+    ``timed`` does not wait: phase 16 prints the two side by side)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -318,45 +293,11 @@ def launch_ms(fn, reps: int = LAUNCH_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, sessions: int = 15) -> dict:
-    """Device time of each kernel one call of ``fn`` runs, from torch.profiler
-    (CUPTI): one call per profiler session, and the session whose total is
-    the median.  (Sessions of many calls were seen to lose events.)  Fails if
-    the profiler saw no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        per_kernel: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
-                    + e.time_range.elapsed_us() / 1e3
-        runs.append(per_kernel)
-    runs.sort(key=lambda d: sum(d.values()))
-    median = runs[len(runs) // 2]
-    check(sum(median.values()) > 0, "torch.profiler saw no device time")
-    return median
-
-
-KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
-           "planar_align": planar_align,
-           "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys}
-
-
 def counted(fn):
     """Run ``fn`` with every kernel's launch counter set to 0; return its
     result and the counts it left."""
     torch.cuda.synchronize()
-    for k in KERNELS.values():
-        k.launches = 0
+    reset_launches()
     out = fn()
     torch.cuda.synchronize()
     return out, {name: k.launches for name, k in KERNELS.items()}
@@ -722,13 +663,14 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
     print(f"phase 11 decode_regular per step on {name_limit} ({HAM_FRAMES} x "
           f"{flen}-sample frames, CUDA events median of {REPS}, each step "
           "ending in its output fetch; device busy from torch.profiler):")
+    step_ms = {}
     for label, x, extra in (("complex presync", s, dict(resync=False)),
                             ("complex resync", s, dict(resync=True)),
                             ("planar presync", planes, dict(resync=False)),
                             ("planar resync", planes, dict(resync=True))):
         def step(x=x, extra=extra):
             return ott.decode_regular(x, **kw, **extra)
-        ms = time_ms(step)
+        ms = step_ms[label] = time_ms(step)
         dk = device_ms(step)
         busy = sum(dk.values())
         print(f"  {ms:.4f} ms/step, {n_samples / ms * 1e3:.4e} samples/s, busy "
@@ -758,19 +700,7 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
           f"from T={need}): {k3:.4f} ms/call, plain {k3_plain:.4f}, bound "
           f"{k3_bound:.4f} (bytes), share {k3_bound / k3:.3f} on {name_limit}")
     return {"stream": s, "want": want, "kw": kw, "burst": bs, "burst_kw": bkw,
-            "burst_found": found}
-
-
-def median_s(fn, reps: int = 10) -> float:
-    """Median host-clock seconds of ``fn`` (which ends in a wait), after
-    one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+            "burst_found": found, "step_ms": step_ms}
 
 
 def phase_serving(dev, name_limit: str, n_frames: int) -> None:
@@ -1631,11 +1561,207 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
             "launches": n_ts["sync_keys"], "max_abs_err": keys_err}
 
 
+# phase 16: the port's bench, run as its users run it
+BENCH_TIMEOUT_S = 600
+BENCH_GATES = (("byte_errors_clean_batch",),
+               ("planar_input", "byte_errors_clean_batch"))
+BENCH_CONFIG_GATES = (
+    ("configs", "hamming_streaming", "detail", "user_byte_errors"),
+    ("configs", "hamming_streaming", "detail", "planar_input", "user_byte_errors"),
+    *(("configs", "serving", "detail", mode, gate)
+      for mode in ("d2h", "device_resident", "planar")
+      for gate in ("payload_byte_errors", "image_errors", "rs_failures")))
+
+
+def run_bench(*args: str) -> tuple[dict, float]:
+    """``python -m ofdm_tpu_torch.bench`` with ``args`` in a subprocess from
+    the checkout: (its last line, seconds).  Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ofdm_tpu_torch.bench", *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    check(proc.returncode == 0, f"bench {' '.join(args)} exited "
+          f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def _at(d: dict, path: tuple):
+    for key in path:
+        d = d[key]
+    return d
+
+
+def check_bench(line: dict, name_limit: str, seed: int, full: bool) -> None:
+    """The bench's line names this card, holds every gate at 0, times
+    every step 100 times, and counts the kernels each step must launch."""
+    name, limit = name_limit.rsplit(", ", 1)
+    check(line["seed"] == seed and line["device"] == {
+        "platform": "gpu", "name": name, "power_limit": limit,
+        "count": torch.cuda.device_count()},
+        f"bench device {line['device']}, want {name_limit!r}")
+    d = line["detail"]
+    check(sorted(d["configs"]) == (["hamming_streaming", "serving"] if full
+                                   else []), f"bench configs {sorted(d['configs'])}")
+    for path in BENCH_GATES + (BENCH_CONFIG_GATES if full else ()):
+        check(_at(d, path) == 0, f"bench gate {'.'.join(path)} = {_at(d, path)}")
+    k1_k2 = {"sync_align": 1, "eq_demod_pack": 1}
+    want = {("launches",): k1_k2, ("planar_input", "launches"): k1_k2}
+    timers = [("ms_per_step",), ("planar_input", "ms_per_step")]
+    if full:
+        ham = ("configs", "hamming_streaming", "detail")
+        srv = ("configs", "serving", "detail")
+        k3_k2 = {"planar_align": 1, "eq_demod_pack": 1}
+        want |= {(*ham, "launches"): k3_k2,
+                 (*ham, "planar_input", "launches"): k3_k2}
+        want |= {(*srv, mode, "launches"): dict(k1_k2, planar_align=1)
+                 for mode in ("d2h", "device_resident", "planar")}
+        timers += [(*ham, "ms_per_step"), (*ham, "planar_input", "ms_per_step"),
+                   (*srv, "d2h", "latency_ms"),
+                   (*srv, "device_resident", "ms_per_step"),
+                   (*srv, "planar", "latency_ms")]
+    for path, n in want.items():
+        check(_at(d, path) == n, f"bench {'.'.join(path)} = {_at(d, path)}, "
+              f"want {n} per step")
+    for path in timers:
+        t = _at(d, path)
+        check(t["n"] == 100 and "p90_ms" in t, f"bench {'.'.join(path)}: {t}")
+
+
+def print_bench(line: dict, name_limit: str, sync_ms: dict) -> None:
+    """The line's numbers, one thing a line; beside them the same steps
+    timed by ``time_ms`` (synchronized after each step) in phases 5 and 11."""
+    tag = f"phase 16 bench seed {line['seed']}"
+    d = line["detail"]
+
+    def steps(label: str, part: dict, sync: float | None = None) -> None:
+        t = part["ms_per_step"]
+        print(f"{tag} {label}: median {t['median_ms']:.4f} ms, p90 "
+              f"{t['p90_ms']:.4f} (n {t['n']}), wall {t['wall_ms']:.4f} ms/step"
+              + ("" if sync is None else f" (time_ms, synchronized: {sync:.4f})")
+              + f", {part['samples_per_s']:.4e} samples/s, busy "
+              f"{part['device_busy_ms']:.4f} ms, idle share "
+              f"{part['idle_share']:.3f}, launches {part['launches']} on "
+              f"{name_limit}; top device items:")
+        for item in part["top_device_items"]:
+            print(f"    {item['ms']:.4f}  {item['name'][:100]}")
+
+    steps("headline decode_frame", d, sync_ms["decode_frame"])
+    steps("headline decode_frame_planar", d["planar_input"])
+    lat = d["blocking_latency_ms"]
+    print(f"{tag} headline blocking latency median {lat['median_ms']:.4f} ms, "
+          f"mean {lat['mean_ms']:.4f} (n {lat['n']}); peak memory "
+          f"{d['peak_memory_bytes']} B; kernel build {d['kernel_build_s']:.2f} s")
+    if not d["configs"]:
+        return
+    ham = d["configs"]["hamming_streaming"]["detail"]
+    steps("config 4 presync complex", ham, sync_ms["complex presync"])
+    steps("config 4 presync planar", ham["planar_input"],
+          sync_ms["planar presync"])
+    print(f"{tag} config 4 user GB/s {ham['user_GBps']:.4f} (complex), "
+          f"{ham['planar_input']['user_GBps']:.4f} (planar); peak memory "
+          f"{ham['peak_memory_bytes']} B")
+    srv = d["configs"]["serving"]["detail"]
+    for mode in ("d2h", "device_resident", "planar"):
+        m = srv[mode]
+        t = m.get("latency_ms") or m["ms_per_step"]
+        what = "latency" if "latency_ms" in m else "step"
+        print(f"{tag} serving {mode}: {m['ms_per_buffer']:.4f} ms/buffer, "
+              f"{m['samples_per_s']:.4e} samples/s, "
+              f"{m['image_frames_per_s']:.1f} image frames/s, {what} median "
+              f"{t['median_ms']:.4f} p90 {t['p90_ms']:.4f} ms (n {t['n']}), "
+              f"idle share {m['idle_share']:.3f}, launches {m['launches']} "
+              f"({srv['buffers']} buffers of {srv['frames_per_buffer']} frames, "
+              f"{srv['in_flight']} in flight) on {name_limit}")
+    print(f"{tag} serving RS codec {srv['rs_codec']}")
+    print(f"{tag} serving parts: fetch of the payload slice "
+          f"({srv['payload_slice_bytes']} B) {srv['fetch_ms']:.4f} ms, RS "
+          f"{srv['rs_ms']:.4f} ms, colorspace {srv['colorspace_ms']:.4f} ms a "
+          f"buffer; serve step busy {srv['device_busy_ms']:.4f} ms; peak memory "
+          f"{srv['peak_memory_bytes']} B; top device items:")
+    for item in srv["top_device_items"]:
+        print(f"    {item['ms']:.4f}  {item['name'][:100]}")
+
+
+SERVE_KERNELS = {"planar_align": (streaming_mod, planar_align_reference),
+                 "sync_align": (rx_mod, sync_align_reference),
+                 "eq_demod_pack": (rx_mod, eq_demod_pack_reference)}
+
+
+def serving_kernels(dev) -> dict:
+    """K3, K1 and K2 against their plain versions on the very inputs the
+    serve step hands each of them, on the bench's serving buffers (its seed
+    0: BENCH_SRV_DISTINCT buffers of BENCH_SRV_FRAMES frames), each buffer
+    complex [T] and planar [2, T]; every step's payload rows must be the RS
+    code bytes that were sent.  Returns each kernel's largest difference."""
+    bufs, pixels = serving.synth_buffers(BENCH_SRV_DISTINCT, BENCH_SRV_FRAMES,
+                                         device=dev)
+    worst = dict.fromkeys(SERVE_KERNELS, 0.0)
+    calls = dict.fromkeys(SERVE_KERNELS, 0)
+    shapes = {}
+
+    def held(name, kernel, reference):
+        def call(*args, **kw):
+            got, ref = kernel(*args, **kw), reference(*args, **kw)
+            got_t, ref_t = ((o if isinstance(o, tuple) else (o,))
+                            for o in (got, ref))
+            check(len(got_t) == len(ref_t), f"{name}: outputs differ in number")
+            for g, r in zip(got_t, ref_t):
+                check(g.shape == r.shape and g.dtype == r.dtype,
+                      f"{name} at the bench's serving shape: {g.shape} "
+                      f"{g.dtype}, plain {r.shape} {r.dtype}")
+                worst[name] = max(worst[name],
+                                  (g.double() - r.double()).abs().max().item())
+            calls[name] += 1
+            shapes[name] = [tuple(a.shape) for a in args
+                            if isinstance(a, torch.Tensor)]
+            return got
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, (module, reference) in SERVE_KERNELS.items():
+            stack.enter_context(mock.patch.object(
+                module, name, held(name, getattr(module, name), reference)))
+        for b, buf in enumerate(bufs):
+            sent = serving.encode_rows(pixels[b])
+            for form, x in (("complex", buf),
+                            ("planar", torch.stack([buf.real, buf.imag]))):
+                raw = serving.serve_step(x, BENCH_SRV_FRAMES).cpu().numpy()
+                errs = int((raw != sent).sum())
+                check(errs == 0, f"bench serving buffer {b} {form}: {errs} "
+                      "payload byte errors")
+    want = 2 * len(bufs)
+    check(calls == dict.fromkeys(SERVE_KERNELS, want),
+          f"serve steps called {calls}, want {want} each")
+    check(not any(worst.values()), f"at the bench's serving shape the "
+          f"kernels differ from plain by {worst}")
+    print(f"phase 16 K3, K1 and K2 on the inputs of {want} serve steps of the "
+          f"bench's {len(bufs)} buffers of {BENCH_SRV_FRAMES} frames (complex "
+          f"and planar; inputs {shapes}) identical to plain; every payload "
+          "row the sent RS code bytes")
+    return worst
+
+
+def phase_bench(name_limit: str, sync_ms: dict) -> dict:
+    """Phase 16: K3, K1 and K2 against plain at the bench's serving shape,
+    then ``python -m ofdm_tpu_torch.bench`` at full size with seed 0, then
+    the headline alone with seed 1.  Returns the kernels' differences."""
+    worst = serving_kernels(torch.device("cuda", 0))
+    for args, seed, full in ((("--seed", "0"), 0, True),
+                             (("--seed", "1", "--only", "headline"), 1, False)):
+        line, secs = run_bench(*args)
+        check_bench(line, name_limit, seed, full)
+        print_bench(line, name_limit, sync_ms)
+        print(f"phase 16 bench {' '.join(args)}: exit 0 in {secs:.1f} s, every "
+              f"gate 0, launches exact; its line: {json.dumps(line)}")
+    return worst
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
     dev = torch.device("cuda", 0)
     set_full_fp32()
+    native_s, native_flags = native.build()
     name_limit = card()
     print(f"phase 1 device: {name_limit}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; TF32 off through {tf32_flags()}")
@@ -1644,8 +1770,7 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"phase 1 build: {build_s:.2f} s for {len(libs)} sources, in "
           f"parallel, into {_build.BUILD_DIR}; native/ (RS codec, IQ loader) "
-          f"{NATIVE_S:.2f} s before the port's import, flags "
-          f"{' '.join(NATIVE_FLAGS)}")
+          f"{native_s:.2f} s, flags {' '.join(native_flags) or '(up to date)'}")
     for so in libs:
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1990,6 +2115,10 @@ def main() -> None:
                 out_clean=out_clean, out_cfo=out_cfo, planes_in=planes_in,
                 view=view)
     keys = phase_parallel(dev, name_limit, head, streams)
+    bench_err = phase_bench(name_limit, {"decode_frame": step_ms,
+                                         **streams["step_ms"]})
+    for e in kernels:
+        e["max_abs_err"] = max(e["max_abs_err"], bench_err.get(e["name"], 0.0))
     bounds["sync_keys"] = keys["bound"]
     dev_ms["sync_keys"], dev_ms["sync_keys plain"] = keys["ms"], keys["plain_ms"]
     kernels.append(entry("sync_keys", "ofdm_tpu_torch/csrc/sync_align.cu",

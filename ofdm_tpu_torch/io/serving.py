@@ -92,6 +92,7 @@ class Served:
     """One buffer through the host tail."""
 
     index: int
+    raw: np.ndarray          # uint8 [n_frames, PAYLOAD_LEN]: the RS code bytes
     pixels: np.ndarray       # uint8 [n_frames, USER_BYTES]: each frame's ids
     rgb: np.ndarray          # uint8 [n_frames, HEIGHT, WIDTH, 3]
     ok: np.ndarray           # bool [n_frames]: RS decoded every block
@@ -112,8 +113,9 @@ def host_tail(raw: np.ndarray):
 
 
 def _finish(index: int, fetch, t_enqueue: float) -> Served:
-    pixels, rgb, ok, rs_s, colors_s = host_tail(fetch.result())
-    return Served(index, pixels, rgb, ok, time.perf_counter() - t_enqueue,
+    raw = fetch.result()
+    pixels, rgb, ok, rs_s, colors_s = host_tail(raw)
+    return Served(index, raw, pixels, rgb, ok, time.perf_counter() - t_enqueue,
                   rs_s, colors_s)
 
 
@@ -157,14 +159,18 @@ def _channel_seed(seed: int, device: torch.device) -> int:
         device=device)[0]) < 0.8)
 
 
-def synth_buffers(n_distinct: int, n_frames: int = N_FRAMES, *, device=None):
+def synth_buffers(n_distinct: int, n_frames: int = N_FRAMES, *,
+                  seed_offset: int = 0, device=None):
     """(complex64 buffers [buffer_len(n_frames)] on ``device``, their pixels
     uint8 [n_distinct, n_frames, USER_BYTES]), as tools/exp_serving.py:82-97
     makes them: random id images, RS-coded, encoded, back to back, through
-    the channel at SNR 45; odd buffers add a CFO.  Made on the device from
-    ``SEED``; the channel's draws differ from the JAX package's."""
+    the channel at SNR 45; odd buffers add a CFO.  Made on the device:
+    numpy draws the pixels from ``SEED + seed_offset`` (offset 0 draws
+    tools/exp_serving.py's and bench.py:422-424's), and buffer b's channel
+    generator starts from 1000 (b + 1) + 1,000,000 seed_offset; the
+    channel's draws differ from the JAX package's."""
     dev = device_mod.resolve(device)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + seed_offset)
     pixels = rng.integers(0, 256, (n_distinct, n_frames, USER_BYTES),
                           dtype=np.uint8)
     bufs = []
@@ -175,7 +181,8 @@ def synth_buffers(n_distinct: int, n_frames: int = N_FRAMES, *, device=None):
         t = buffer_len(n_frames)
         stream = torch.cat([tx, tx.new_zeros(t - tx.shape[0])])
         cfo = b % 2 == 1
-        k = _channel_seed(1000 * (b + 1), dev) if cfo else 1000 * (b + 1)
+        k = 1000 * (b + 1) + 1_000_000 * seed_offset
+        k = _channel_seed(k, dev) if cfo else k
         rx = channel(stream, snr=SNR, timing_error=cfo,
                      generator=torch.Generator(dev).manual_seed(k))
         bufs.append(rx[:t])

@@ -121,6 +121,9 @@ assert torch.equal(bitops.bits_to_bytes(bits), data)
 assert int(stats.idmax(shift.fft_shift(tx))) >= 0 and ber_theory.q_func(0.0) == 0.5
 assert int(xcorr_fft(tx[:80], tx[:80])[0]) == 79 and convolve_fft(tx, tx[:4].real).shape[0] == tx.shape[0] + 3
 assert plots.stem_plot(tx[:64].numpy())
+from ofdm_tpu_torch import bench
+from ofdm_tpu_torch.core import native
+assert bench.tail_percentile(100) == 90 and native.MODULES
 assert not any(m == "ofdm_tpu" or m.startswith("ofdm_tpu.") for m in sys.modules)
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok")
@@ -128,8 +131,8 @@ print("ok")
 
 
 def test_round_trip_without_jax():
-    """The library, the serve loop, every app's ``main`` and the small
-    modules run in a process where importing jax fails."""
+    """The library, the serve loop, every app's ``main``, the small modules
+    and the bench's module run in a process where importing jax fails."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", ROUND_TRIP, str(ROOT)],
                           capture_output=True, text=True, timeout=300, env=env)
