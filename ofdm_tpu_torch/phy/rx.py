@@ -44,7 +44,7 @@ from ..core import device as device_mod
 from ..kernels.align import pin_rowmajor, planar_align, sync_align
 from ..kernels.chain import sync_align_chunked
 from ..kernels.demod import eq_demod_pack, equalized_symbols
-from ..obs import taps
+from ..obs import profiler, taps
 from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_derot_planar,
                        dft_matmul_select_planar, require_full_fp32)
 from ..ops.xcorr import MAX_TAPS, check_sync_dtype, locking_sync_offset
@@ -190,10 +190,11 @@ def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
           cfg: FrameConfig, blocks: torch.Tensor | None = None) -> torch.Tensor:
     """``eq_demod_pack`` on the DFT planes, with h_k at the selected bins and
     ``phase`` the per-chunk CFO rate (f_delta, or zeros after stream derot)."""
-    h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
-    return eq_demod_pack(yr, yi, h_sel, phase.contiguous(), n_data=nd,
-                         n_pilots=n_pilots, modulation=modulation, cfg=cfg,
-                         blocks=blocks)
+    with profiler.span("rx.tail", yr):
+        h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
+        return eq_demod_pack(yr, yi, h_sel, phase.contiguous(), n_data=nd,
+                             n_pilots=n_pilots, modulation=modulation, cfg=cfg,
+                             blocks=blocks)
 
 
 def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
@@ -209,13 +210,14 @@ def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
     sym = cfg.sym_len
     cp = planes.reshape(planes.shape[0], 2, n_chunks, sym)
     kw = dict(guard_bands=guard_bands, cfg=cfg, cfo_estimator=cfo_estimator)
-    if derot == "matrix":
-        yr, yi, h_k, f_delta = _matrix_front(cp[:, 0], cp[:, 1], **kw)
-        phase = f_delta
-    else:
-        chunks = torch.complex(cp[:, 0], cp[:, 1])
-        yr, yi, h_k, f_delta, rotated = _stream_front(chunks, **kw)
-        phase = torch.zeros_like(f_delta)
+    with profiler.span("rx.front", planes):
+        if derot == "matrix":
+            yr, yi, h_k, f_delta = _matrix_front(cp[:, 0], cp[:, 1], **kw)
+            phase = f_delta
+        else:
+            chunks = torch.complex(cp[:, 0], cp[:, 1])
+            yr, yi, h_k, f_delta, rotated = _stream_front(chunks, **kw)
+            phase = torch.zeros_like(f_delta)
     out = _tail(yr, yi, h_k, phase, guard_bands=guard_bands,
                 modulation=modulation, cfg=cfg)
     if not diag:
@@ -325,20 +327,21 @@ def decode_chunked_matrix(chun, *, n_chunks: int, m_per: int,
         return (c % n_cls) * m_per + c // n_cls
 
     last = cfg.n_locking + cfg.n_preamble - 1
-    f_delta = _cfo_estimate_lr(
-        torch.complex(cr[:, slot_of(last - 1), :sym], ci[:, slot_of(last - 1), :sym]),
-        torch.complex(cr[:, slot_of(last), :sym], ci[:, slot_of(last), :sym]),
-        cfg, cfo_estimator)
     t0 = cfg.n_locking + cfg.n_preamble
-    train = device_table(_slot_table, (n_cls, m_per, t0, t0 + cfg.n_training),
-                         torch.long, cr.device)
     lanes = slice(cfg.cp_len, cfg.cp_len + cfg.n_fft)
-    h_k = _channel_estimate(torch.complex(cr[:, train, lanes], ci[:, train, lanes]),
-                            f_delta, cfg)
-    sel, _, _ = _selected_bins(guard_bands, cfg)
-    yr, yi = dft_matmul_select_derot_planar(cr[:, :, lanes], ci[:, :, lanes],
-                                            sel, f_delta,
-                                            sample_offset=cfg.cp_len)
+    with profiler.span("rx.front", cr):
+        f_delta = _cfo_estimate_lr(
+            torch.complex(cr[:, slot_of(last - 1), :sym], ci[:, slot_of(last - 1), :sym]),
+            torch.complex(cr[:, slot_of(last), :sym], ci[:, slot_of(last), :sym]),
+            cfg, cfo_estimator)
+        train = device_table(_slot_table, (n_cls, m_per, t0, t0 + cfg.n_training),
+                             torch.long, cr.device)
+        h_k = _channel_estimate(torch.complex(cr[:, train, lanes], ci[:, train, lanes]),
+                                f_delta, cfg)
+        sel, _, _ = _selected_bins(guard_bands, cfg)
+        yr, yi = dft_matmul_select_derot_planar(cr[:, :, lanes], ci[:, :, lanes],
+                                                sel, f_delta,
+                                                sample_offset=cfg.cp_len)
     blocks = device_table(_slot_table, (n_cls, m_per, cfg.n_sync_chunks,
                                         n_chunks), torch.int32, cr.device)
     out = _tail(yr, yi, h_k, f_delta, guard_bands=guard_bands,
@@ -389,28 +392,32 @@ def _decode_batch(flat: torch.Tensor, *, n_blocks: int, guard_bands: bool,
     require_full_fp32(flat.device)
     n_chunks = cfg.n_sync_chunks + n_blocks
     need = n_chunks * cfg.sym_len
-    if flat.shape[-1] < need:
-        flat = _pad_last(flat, need - flat.shape[-1])
-    elif not flat.is_contiguous():
-        flat = pin_rowmajor(flat)
-    t = flat.shape[-1]
     template = locking_template(cfg)
     kw = dict(guard_bands=guard_bands, modulation=modulation, cfg=cfg,
               cfo_estimator=cfo_estimator)
+    with profiler.span("rx.sync", flat):
+        if flat.shape[-1] < need:
+            flat = _pad_last(flat, need - flat.shape[-1])
+        elif not flat.is_contiguous():
+            flat = pin_rowmajor(flat)
+        t = flat.shape[-1]
+        if route == "chunked":
+            chun, _, m_per = sync_align_chunked(
+                flat, template, n_chunks=n_chunks, cfg=cfg,
+                search_window=search_window)
+        elif route == "fused":
+            planes, _ = sync_align(flat, template, need,
+                                   search_window=search_window, planar=True)
+        else:
+            cplx = flat if flat.dim() == 2 \
+                else torch.complex(flat[:, 0], flat[:, 1])
+            scan = cplx if search_window is None \
+                else cplx[:, :search_window + cfg.sym_len]
+            offsets = torch.clamp(
+                sync_offset(scan, cfg, compute_dtype=sync_dtype), 0, t - need)
+            planes = planar_align(flat, offsets, need, planar=True)
     if route == "chunked":
-        chun, _, m_per = sync_align_chunked(flat, template, n_chunks=n_chunks,
-                                            cfg=cfg, search_window=search_window)
         return decode_chunked_matrix(chun, n_chunks=n_chunks, m_per=m_per, **kw)
-    if route == "fused":
-        planes, _ = sync_align(flat, template, need,
-                               search_window=search_window, planar=True)
-    else:
-        cplx = flat if flat.dim() == 2 else torch.complex(flat[:, 0], flat[:, 1])
-        scan = cplx if search_window is None \
-            else cplx[:, :search_window + cfg.sym_len]
-        offsets = torch.clamp(sync_offset(scan, cfg, compute_dtype=sync_dtype),
-                              0, t - need)
-        planes = planar_align(flat, offsets, need, planar=True)
     return _decode_planes(planes, n_chunks=n_chunks, derot=derot, **kw)[0]
 
 
@@ -453,18 +460,19 @@ def decode_frame(samples: torch.Tensor, *, n_blocks: int,
     ``demod_impl`` and ``dft_precision`` are TPU lowering knobs and are not
     ported: the tail is always ``eq_demod_pack`` and every DFT is full fp32.
     """
-    squeeze = samples.dim() == 1
-    if squeeze:
-        samples = samples[None, :]
-    lead = samples.shape[:-1]
-    flat = samples.to(torch.complex64).reshape(-1, samples.shape[-1])
-    out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
-                        modulation=modulation, cfg=cfg, sync_dtype=sync_dtype,
-                        search_window=search_window,
-                        cfo_estimator=cfo_estimator, align_impl=align_impl,
-                        derot_impl=derot_impl)
-    out = out.reshape(*lead, out.shape[-1])
-    return out[0] if squeeze else out
+    with profiler.span("rx.decode_frame", samples):
+        squeeze = samples.dim() == 1
+        if squeeze:
+            samples = samples[None, :]
+        lead = samples.shape[:-1]
+        flat = samples.to(torch.complex64).reshape(-1, samples.shape[-1])
+        out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+                            modulation=modulation, cfg=cfg,
+                            sync_dtype=sync_dtype, search_window=search_window,
+                            cfo_estimator=cfo_estimator, align_impl=align_impl,
+                            derot_impl=derot_impl)
+        out = out.reshape(*lead, out.shape[-1])
+        return out[0] if squeeze else out
 
 
 def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
@@ -485,18 +493,19 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
     TPU's pre-tiled [..., 2, tiles, 128] form is not taken."""
     if planes.dim() < 2 or planes.shape[-2] != 2:
         raise ValueError(f"planes must be [..., 2, T], got {tuple(planes.shape)}")
-    squeeze = planes.dim() == 2
-    if squeeze:
-        planes = planes[None]
-    lead = planes.shape[:-2]
-    flat = planes.to(torch.float32).reshape(-1, 2, planes.shape[-1])
-    out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
-                        modulation=modulation, cfg=cfg, sync_dtype=sync_dtype,
-                        search_window=search_window,
-                        cfo_estimator=cfo_estimator, align_impl=align_impl,
-                        derot_impl=derot_impl)
-    out = out.reshape(*lead, out.shape[-1])
-    return out[0] if squeeze else out
+    with profiler.span("rx.decode_frame", planes):
+        squeeze = planes.dim() == 2
+        if squeeze:
+            planes = planes[None]
+        lead = planes.shape[:-2]
+        flat = planes.to(torch.float32).reshape(-1, 2, planes.shape[-1])
+        out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+                            modulation=modulation, cfg=cfg,
+                            sync_dtype=sync_dtype, search_window=search_window,
+                            cfo_estimator=cfo_estimator, align_impl=align_impl,
+                            derot_impl=derot_impl)
+        out = out.reshape(*lead, out.shape[-1])
+        return out[0] if squeeze else out
 
 
 def decode(samples, guard_bands: bool = False,

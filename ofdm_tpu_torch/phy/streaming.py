@@ -38,6 +38,7 @@ from ..core import device as device_mod
 from ..fec import hamming
 from ..fec import reed_solomon as rs
 from ..kernels.align import planar_align
+from ..obs import profiler
 from ..ops.fft import require_full_fp32
 from ..ops.xcorr import (locking_sync_quality, sliding_correlation,
                          sliding_correlation_matmul, window_energy)
@@ -138,8 +139,9 @@ def _rows(stream: torch.Tensor, first: torch.Tensor, *, n_frames: int,
           spacing: int, flen: int, planar: bool) -> torch.Tensor:
     """K3 on the shared stream: row i = stream[first + i*spacing :][:flen],
     zeros past the end; f32 planes [n, 2, flen] or complex64 [n, flen]."""
-    offsets = first + torch.arange(n_frames, device=stream.device) * spacing
-    return planar_align(stream, offsets, flen, planar=planar)
+    with profiler.span("stream.align", stream):
+        offsets = first + torch.arange(n_frames, device=stream.device) * spacing
+        return planar_align(stream, offsets, flen, planar=planar)
 
 
 def _extract_and_decode(stream: torch.Tensor, first: torch.Tensor, *,
@@ -233,35 +235,42 @@ def decode_regular(samples, *, n_frames: int, spacing: int, payload_len: int,
     An unknown ``fec`` or ``planar_handoff``, a ``spacing`` below the frame
     length, or the TPU's pre-tiled [2, tiles, 128] stream raises ValueError.
     """
-    stream, planar = _stream(samples, device)
-    nb = n_data_blocks(payload_len, modulation, guard_bands, cfg)
-    flen = cfg.sync_len + nb * cfg.sym_len
-    if spacing < flen:
-        raise ValueError(f"spacing {spacing} < frame length {flen}")
-    _check_fec(fec)
-    if planar_handoff not in PLANAR_HANDOFFS:
-        raise ValueError(f"unknown planar_handoff {planar_handoff!r}; "
-                         f"expected one of {PLANAR_HANDOFFS}")
-    n_bytes = data_len if data_len is not None else payload_len
+    with profiler.span("stream.decode_regular", samples):
+        stream, planar = _stream(samples, device)
+        nb = n_data_blocks(payload_len, modulation, guard_bands, cfg)
+        flen = cfg.sync_len + nb * cfg.sym_len
+        if spacing < flen:
+            raise ValueError(f"spacing {spacing} < frame length {flen}")
+        _check_fec(fec)
+        if planar_handoff not in PLANAR_HANDOFFS:
+            raise ValueError(f"unknown planar_handoff {planar_handoff!r}; "
+                             f"expected one of {PLANAR_HANDOFFS}")
+        n_bytes = data_len if data_len is not None else payload_len
 
-    # One sync for the first frame; its offset stays on the device, so the
-    # whole buffer decodes before the host waits for anything.
-    sync = _first_sync_planar if planar else _first_sync
-    first = sync(stream, spacing=spacing, cfg=cfg).clamp(min=0)
-    kw = dict(n_frames=n_frames, spacing=spacing, nb=nb, flen=flen,
-              guard_bands=guard_bands, modulation=modulation, cfg=cfg)
-    if resync:
-        out = _extract_and_decode(stream, first, **kw)
-    else:
-        out = _extract_and_decode_presync(
-            stream, first, handoff=planar_handoff if planar else "planar", **kw)
-    payload = out[:, HEADER_LEN:HEADER_LEN + payload_len]
-    if fec == "hamming":
-        # the Hamming decode runs on the device: only the corrected user
-        # bytes leave it
-        return (hamming.decode(payload, n_bytes).cpu().numpy(),
-                np.ones(n_frames, bool))
-    return _defec_rows(payload.cpu().numpy(), fec, n_bytes)
+        # One sync for the first frame; its offset stays on the device, so
+        # the whole buffer decodes before the host waits for anything.
+        sync = _first_sync_planar if planar else _first_sync
+        with profiler.span("stream.sync", stream):
+            first = sync(stream, spacing=spacing, cfg=cfg).clamp(min=0)
+        kw = dict(n_frames=n_frames, spacing=spacing, nb=nb, flen=flen,
+                  guard_bands=guard_bands, modulation=modulation, cfg=cfg)
+        if resync:
+            out = _extract_and_decode(stream, first, **kw)
+        else:
+            out = _extract_and_decode_presync(
+                stream, first, handoff=planar_handoff if planar else "planar",
+                **kw)
+        payload = out[:, HEADER_LEN:HEADER_LEN + payload_len]
+        if fec == "hamming":
+            # the Hamming decode runs on the device: only the corrected user
+            # bytes leave it
+            with profiler.span("stream.hamming", payload):
+                payload = hamming.decode(payload, n_bytes)
+        with profiler.span("stream.fetch", payload):
+            raw = payload.cpu().numpy()
+        if fec == "hamming":
+            return raw, np.ones(n_frames, bool)
+        return _defec_rows(raw, fec, n_bytes)
 
 
 def _scan_windows(s: torch.Tensor, *, n_win: int, stride: int,
