@@ -6,7 +6,7 @@
 Builds the host code under native/ (the RS codec and the IQ loader,
 ``ofdm_tpu_torch.core.native.build``, which reloads the port's modules that
 load them), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
-source, all at once), and runs sixteen phases:
+source, all at once), and runs seventeen phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -19,13 +19,28 @@ source, all at once), and runs sixteen phases:
      a CFO phase, QPSK, BPSK without guard bands, QAM16 and QAM256, each
      also through a block table (the chunked route's slot order), and
      QAM64 with guard bands but no pilots.  Bytes must be identical;
+ 3b. the derot DFT kernel (``kernels/derot.py::derot_dft``, behind
+     ``ops/fft.py::dft_matmul_select_derot_planar``) against its plain
+     version at the batch benchmark's shape, 2,048 rows of 8,192-byte QAM64
+     payloads (228 blocks, 52 bins, guard bands) on K1's strided plane
+     views of a clean and a CFO batch, all 64 bins, K4's lane-sliced
+     128-lane slots, a 32-point geometry, a 128-point one (52 and 128 bins)
+     and a 256-point one (guard-band bins and all 256): at most
+     2e-5 * n / 64 of each row's RMS sample from the plain version (the
+     same float32 sums in another order) and, on 256 rows, from the float64
+     DFT; one launch each.  float64 planes and an n_fft the kernel is not
+     built for raise, with no launch.  decode_frame on
+     the two batches: the payload on every clean row, >= 95% of the CFO
+     rows exact.  The kernel's device time beside its bound and the plain
+     version's;
   4. end to end on the card: 256 x 8,192-byte payloads, encode (QAM64,
      guard bands), channel at SNR 45 without and with CFO, decode_frame on
      both.  The clean batch must decode with 0 byte errors, >= 95% of the
-     CFO rows exactly, and the two calls must have launched K1 and K2
-     exactly twice each and no other kernel.  Then decode_frame_planar must
-     give the same bytes and decode the payload (one launch each of K1 and
-     K2), and on both batches K1 and K2 must equal their plain versions;
+     CFO rows exactly, and the two calls must have launched K1, the derot
+     DFT and K2 exactly twice each and no other kernel.  Then
+     decode_frame_planar must give the same bytes and decode the payload
+     (one launch each of K1, the derot DFT and K2), and on both batches K1
+     and K2 must equal their plain versions;
   5. timing: decode_frame per step with CUDA events and its device busy time
      from torch.profiler; K1's and K2's device time per call (profiler)
      beside their plain versions';
@@ -145,10 +160,16 @@ source, all at once), and runs sixteen phases:
      are printed beside phases 5 and 11's synchronized times of the same
      steps, and its line whole.
 
+Every decode that takes the matrix-derot front half (all but ``decode``,
+which derotates the stream, and the time-sharded decode, which has no K2)
+also launches the derot DFT kernel once for each K2 launch; the time-sharded
+decode and the pipeline step launch it once each.  The counts above leave
+it out; the checks hold it exactly.
+
 Any failed check raises and the script exits non-zero without the final
 line.  The last three lines are the card's ``nvidia-smi`` name and power
-limit, one JSON object describing each kernel (the five and ``sync_keys``,
-K1's correlation pass as the time-sharded sync), and
+limit, one JSON object describing each kernel (the five, ``sync_keys``,
+K1's correlation pass as the time-sharded sync, and ``derot_dft``), and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -205,10 +226,13 @@ from ofdm_tpu_torch.kernels.align import (key_lag, key_power,  # noqa: E402
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
+from ofdm_tpu_torch.kernels.derot import derot_dft  # noqa: E402
 from ofdm_tpu_torch.obs import ber_theory, profiler  # noqa: E402
 from ofdm_tpu_torch.obs.analysis import bit_errors  # noqa: E402
 from ofdm_tpu_torch.obs.logging import set_up_logging  # noqa: E402
-from ofdm_tpu_torch.ops.fft import set_full_fp32  # noqa: E402
+from ofdm_tpu_torch.ops.fft import (  # noqa: E402
+    dft_matmul_select_derot_planar, dft_matmul_select_derot_planar_reference,
+    set_full_fp32)
 from ofdm_tpu_torch.parallel import halo as halo_mod  # noqa: E402
 from ofdm_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from ofdm_tpu_torch.parallel.pipeline import (  # noqa: E402
@@ -492,6 +516,168 @@ def phase_eq_demod(gen, dev):
     return worst
 
 
+# The derot DFT kernel against its plain version and against the float64
+# DFT: the largest difference over each row's RMS input sample, at most
+# DEROT_TOL * n / 64.  Kernel and plain version sum the same n float32
+# products in another order (the kernel splits the DFT 8 x n/8, the plain
+# version is a per-row matrix and two batched products); a float32 sum of n
+# terms rounds by up to ~n float32 epsilons of its terms' size, so the limit
+# grows with n: 2e-5 at n = 64, against 1.2-1.4e-5 measured there on an
+# H100.
+DEROT_TOL = 2e-5
+DEROT_EXACT_ROWS = 256
+
+
+def derot_err(got, ref, xr, xi) -> tuple:
+    """(largest |got - ref| over its row's RMS sample, largest |got - ref|),
+    the RMS taken over the row's blocks that are not all zero (K4's slots
+    past a frame)."""
+    d = torch.hypot(got[0] - ref[0], got[1] - ref[1]).amax((1, 2))
+    power = (xr.double() ** 2 + xi.double() ** 2).sum(-1)
+    blocks = (power > 0).sum(1).clamp(min=1)
+    rms = torch.sqrt(power.sum(1) / (blocks * xr.shape[-1]))
+    return float((d.double() / rms).max()), float(d.max())
+
+
+def derot_exact(xr, xi, bins, omega, offset):
+    """The float64 DFT at ``bins`` of the explicitly derotated symbols, as
+    (real, imaginary) planes."""
+    x = torch.complex(xr.double(), xi.double())
+    p = torch.arange(x.shape[-1], dtype=torch.float64, device=x.device) + offset
+    y = torch.fft.fft(x * torch.exp(-1j * omega.double()[:, None, None] * p),
+                      dim=-1)[..., list(bins)]
+    return y.real, y.imag
+
+
+def phase_derot_dft(dev) -> dict:
+    """Phase 3b: the derot DFT kernel against its plain version (see the
+    module docstring).  Returns its measurements for the kernels line."""
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    cfg = ott.DEFAULT_CONFIG
+    template = constants.locking_for(cfg)
+    nb = ott.n_data_blocks(PAYLOAD, MOD, True)
+    n_chunks = cfg.n_sync_chunks + nb
+    need = n_chunks * cfg.sym_len
+    rows = 8 * BATCH                                   # the batch cell's rows
+    data = torch.randint(0, 256, (rows, PAYLOAD), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    tx = ott.encode(data, guard_bands=True, modulation=MOD)
+    frame = cfg.sync_len + cfg.sym_len + nb * cfg.sym_len
+    rx_clean, rx_cfo = (
+        pad_rows(ott.channel(tx, snr=SNR, timing_error=cfo, generator=gen), frame)
+        for cfo in (False, True))
+    sel = rx_mod._selected_bins(True, cfg)[0]
+    worst_rel, worst_abs = 0.0, 0.0
+
+    def compare(label, xr, xi, bins, omega, offset):
+        nonlocal worst_rel, worst_abs
+        before = derot_dft.launches
+        got = dft_matmul_select_derot_planar(xr, xi, bins, omega, offset)
+        ref = dft_matmul_select_derot_planar_reference(xr, xi, bins, omega,
+                                                       offset)
+        torch.cuda.synchronize()
+        check(derot_dft.launches == before + 1,
+              f"derot_dft {label}: the kernel did not launch")
+        check(got[0].stride() == ref[0].stride() and got[1].data_ptr()
+              - got[0].data_ptr() == ref[1].data_ptr() - ref[0].data_ptr(),
+              f"derot_dft {label}: layout {got[0].stride()} differs from plain")
+        tol = DEROT_TOL * xr.shape[-1] / 64
+        err, abs_err = derot_err(got, ref, xr, xi)
+        worst_rel, worst_abs = max(worst_rel, err), max(worst_abs, abs_err)
+        m = DEROT_EXACT_ROWS
+        exact = derot_exact(xr[:m], xi[:m], bins, omega[:m], offset)
+        k_err, p_err = (derot_err([y[:m] for y in ys], exact, xr[:m], xi[:m])[0]
+                        for ys in (got, ref))
+        check(err <= tol and k_err <= tol, f"derot_dft {label}: differs from "
+              f"plain by {err:.3e}, from the float64 DFT by {k_err:.3e} of "
+              f"the row RMS (limit {tol:.3g})")
+        print(f"phase 3b derot_dft {label}: {list(xr.shape)} strides "
+              f"{xr.stride()} -> {len(bins)} bins, max |kernel - plain| "
+              f"{abs_err:.3e}, {err:.3e} of the row RMS (limit {tol:.3g}); "
+              f"on {m} rows against the float64 DFT kernel {k_err:.3e}, "
+              f"plain {p_err:.3e} of the row RMS")
+
+    for name, x in (("clean", rx_clean), ("CFO", rx_cfo)):
+        planes, _ = sync_align(x, template, need, planar=True)
+        cp = planes.reshape(rows, 2, n_chunks, cfg.sym_len)
+        f_delta = rx_mod._matrix_front(cp[:, 0], cp[:, 1], guard_bands=True,
+                                       cfg=cfg, cfo_estimator="coherent")[3]
+        xr = cp[:, 0, cfg.n_sync_chunks:, cfg.cp_len:]
+        xi = cp[:, 1, cfg.n_sync_chunks:, cfg.cp_len:]
+        compare(f"{name} batch on K1's plane views, guard bands", xr, xi, sel,
+                f_delta, cfg.cp_len)
+    compare("CFO batch, all 64 bins", xr, xi, tuple(range(cfg.n_fft)), f_delta,
+            cfg.cp_len)
+    (cr, ci), _, _ = sync_align_chunked(rx_cfo, template, n_chunks=n_chunks)
+    lanes = slice(cfg.cp_len, cfg.cp_len + cfg.n_fft)
+    compare("CFO batch on K4's 128-lane slots", cr[:, :, lanes],
+            ci[:, :, lanes], sel, f_delta, cfg.cp_len)
+    del cr, ci
+    cfg160 = ott.FrameConfig(n_fft=128, cp_len=32, n_training=3, n_preamble=2,
+                             locking_seed=7)
+    cfg256 = ott.FrameConfig(n_fft=256, cp_len=64, locking_seed=7)
+    for n, cp_len, bins in ((32, 8, tuple(range(32))),
+                            (128, 32, rx_mod._selected_bins(True, cfg160)[0]),
+                            (128, 32, tuple(range(128))),
+                            (256, 64, rx_mod._selected_bins(True, cfg256)[0]),
+                            (256, 64, tuple(range(256)))):
+        sym = n + cp_len
+        v = torch.randn((BATCH, 2, (cfg.n_sync_chunks + nb) * sym),
+                        generator=gen, device=dev).reshape(BATCH, 2, -1, sym)
+        omega = 0.8 * math.pi / sym * (
+            2 * torch.rand(BATCH, generator=gen, device=dev) - 1)
+        compare(f"{n}-point geometry, {len(bins)} bins",
+                v[:, 0, cfg.n_sync_chunks:, cp_len:],
+                v[:, 1, cfg.n_sync_chunks:, cp_len:], bins, omega, cp_len)
+    del v
+    # what the kernel is not built for raises on the card, with no fallback
+    before = derot_dft.launches
+    for label, args in (
+            ("float64 planes", (xr.double(), xi.double(), sel,
+                                f_delta.double(), cfg.cp_len)),
+            ("n_fft 48", (xr[..., :48], xi[..., :48], sel[:4], f_delta,
+                          cfg.cp_len))):
+        try:
+            dft_matmul_select_derot_planar(*args)
+        except ValueError as e:
+            print(f"phase 3b derot_dft {label}: refused on the card ({e})")
+        else:
+            check(False, f"derot_dft {label}: ran on the card")
+    check(derot_dft.launches == before, "derot_dft: a refused input launched")
+
+    kw = dict(n_blocks=nb, guard_bands=True, modulation=MOD)
+    (out_clean, out_cfo), n = counted(lambda: (ott.decode_frame(rx_clean, **kw),
+                                               ott.decode_frame(rx_cfo, **kw)))
+    check(n == launches(sync_align=2, derot_dft=2, eq_demod_pack=2),
+          f"decode_frame x2 at {rows} rows launched {n}")
+    gates(out_clean, data, f"decode_frame at {rows} rows", cfo=False)
+    good = gates(out_cfo, data, f"decode_frame at {rows} rows", cfo=True)
+    print(f"phase 3b decode_frame at the batch cell's {rows} x {PAYLOAD} B "
+          f"QAM64, T={frame}: clean bytes equal the payload, CFO rows exact "
+          f"{good}/{rows}; launches {n}")
+
+    # device time at the batch cell's shape (K1's views of the CFO batch)
+    args = (xr, xi, sel, f_delta, cfg.cp_len)
+    k_ms = sum(device_ms(lambda: dft_matmul_select_derot_planar(*args)).values())
+    p_ms = sum(device_ms(
+        lambda: dft_matmul_select_derot_planar_reference(*args)).values())
+    k = len(sel)
+    nbytes = 2 * xr.numel() * 4 + xr.shape[0] * xr.shape[1] * 2 * k * 4 \
+        + rows * 4
+    # the split's operations: n complex derotations (6 flops), n/8 8-point
+    # butterflies (56), k * n/8 complex multiply-adds (8)
+    n2 = cfg.n_fft // 8
+    flops = xr.shape[0] * xr.shape[1] * (6 * cfg.n_fft + 56 * n2 + 8 * k * n2)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"phase 3b derot_dft device time at [{rows}, {nb}, {cfg.n_fft}] -> "
+          f"{k} bins: {k_ms:.4f} ms/call, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes:,} B), roofline share {b_ms / k_ms:.3f}; plain "
+          f"{p_ms:.4f} ms/call (torch.profiler, median of 15 sessions)")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound": (b_ms, b_by),
+            "err": worst_abs, "rel_rms_err": worst_rel,
+            "launches": n["derot_dft"]}
+
+
 def gates(out, data, name: str, cfo: bool) -> int:
     """The phase-4 gates: 0 payload byte errors clean, >= 95% of the rows
     exact with CFO.  Returns the exact rows."""
@@ -568,8 +754,8 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
     planes = torch.stack([s.real, s.imag])
     kw = dict(n_frames=HAM_FRAMES, spacing=flen, payload_len=plen,
               guard_bands=True, modulation=MOD, fec="hamming", data_len=HAM_BYTES)
-    presync = launches(planar_align=1, eq_demod_pack=1)
-    resync = launches(planar_align=1, sync_align=1, eq_demod_pack=1)
+    presync = launches(planar_align=1, derot_dft=1, eq_demod_pack=1)
+    resync = launches(planar_align=1, sync_align=1, derot_dft=1, eq_demod_pack=1)
     routes = [("complex presync", s, dict(resync=False), presync),
               ("complex resync", s, dict(resync=True), resync)]
     routes += [(f"planar presync, handoff {h}", planes,
@@ -635,7 +821,7 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
     bkw = dict(payload_len=plen, guard_bands=True, modulation=MOD, fec="hamming",
                data_len=HAM_BYTES)
     found, n_burst = counted(lambda: ott.decode_burst(bs, **bkw))
-    check(n_burst == launches(planar_align=1, eq_demod_pack=1),
+    check(n_burst == launches(planar_align=1, derot_dft=1, eq_demod_pack=1),
           f"decode_burst launched {n_burst}")
     check(len(found) == BURST_FRAMES, f"decode_burst found {len(found)} frames")
     bwant = bdata.cpu().numpy()
@@ -650,7 +836,7 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
           f"0 byte errors; launches {n_burst}; synchronizing calls {n_bsync}")
     cont, n_cont = counted(
         lambda: list(ott.decode_continuous(bs, max_frames=8, **bkw)))
-    check(n_cont == launches(sync_align=8, eq_demod_pack=8),
+    check(n_cont == launches(sync_align=8, derot_dft=8, eq_demod_pack=8),
           f"decode_continuous launched {n_cont}")
     check([c[0] for c in cont] == [f[0] for f in found[:8]]
           and all(np.array_equal(c[1], f[1]) for c, f in zip(cont, found)),
@@ -715,7 +901,8 @@ def phase_serving(dev, name_limit: str, n_frames: int) -> None:
     flen = serving.FLEN
     n_buf = SRV_DISTINCT * SRV_ROUNDS
     order = [i % SRV_DISTINCT for i in range(n_buf)]
-    per_step = launches(planar_align=1, sync_align=1, eq_demod_pack=1)
+    per_step = launches(planar_align=1, sync_align=1, derot_dft=1,
+                        eq_demod_pack=1)
 
     # one serve step: its launches, no synchronizing call before the fetch
     raw, n_step = counted(lambda: serving.serve_step(bufs[1], n_frames))
@@ -815,7 +1002,7 @@ def phase_serving(dev, name_limit: str, n_frames: int) -> None:
             fn()                                      # warm-up, checked too
             res, n = counted(fn)
             want = launches(planar_align=n_buf, sync_align=n_buf,
-                            eq_demod_pack=n_buf)
+                            derot_dft=n_buf, eq_demod_pack=n_buf)
             check(n == want, f"serving {label} launched {n}, want {want}")
             results[label] = res
             print(f"phase 12 serving {label}: {n_buf} buffers, every image of "
@@ -1027,8 +1214,10 @@ def phase_captures(dev, n_plain_decode: dict) -> None:
     t_phase = time.perf_counter()
     cfg = ott.DEFAULT_CONFIG
     template = constants.locking_for(cfg)
-    one_each = launches(sync_align=1, eq_demod_pack=1)
-    check(n_plain_decode == one_each, f"phase 4's decode launched {n_plain_decode}")
+    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
+    # decode derotates the stream itself, so it never launches the derot DFT
+    check(n_plain_decode == launches(sync_align=1, eq_demod_pack=1),
+          f"phase 4's decode launched {n_plain_decode}")
     for name, mod in CAPTURES:
         rows, decoded, nb, payload = load_capture(name)
         x = torch.as_tensor(rows).to(dev)
@@ -1110,7 +1299,7 @@ def phase_apps(dev, name_limit: str) -> None:
     module docstring)."""
     t_phase = time.perf_counter()
     cuda = ["--device", "cuda"]
-    one_each = launches(sync_align=1, eq_demod_pack=1)
+    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
 
     # ber_sweep.measure_ber at the headline width
     print(f"phase 14 ber_sweep.measure_ber on {name_limit}: {BATCH} x {PAYLOAD} B, "
@@ -1215,8 +1404,9 @@ def phase_apps(dev, name_limit: str) -> None:
     n_apps = {name: k.launches for name, k in KERNELS.items()}
     # lab3a, lab3b, lab3c, 2 monitor buffers, 2 image apps, 8 + 1 rx_stream
     # buffers: one decode each (K1 1 + K2 1); the --continuous buffer goes
-    # through decode_burst (K3 1 + K2 1)
-    check(n_apps == launches(sync_align=16, eq_demod_pack=17, planar_align=1),
+    # through decode_burst (K3 1 + derot DFT 1 + K2 1)
+    check(n_apps == launches(sync_align=16, eq_demod_pack=17, planar_align=1,
+                             derot_dft=1),
           f"the apps launched {n_apps}")
     print(f"phase 14 kernel launches of the apps above: {n_apps}")
     set_up_logging("chip_smoke")       # the apps' log handlers wrote to run_app's buffers
@@ -1350,7 +1540,8 @@ def nccl_world(name_limit: str, data: np.ndarray) -> None:
           and np.array_equal(outputs[0]["pipe/decoded"][:, 16:16 + PAYLOAD],
                              data), f"NCCL world: bit errors {errs.tolist()}")
     check(rep["launches"] == launches(sync_keys=NCCL_WORLD_STEPS,
-                                      planar_align=NCCL_WORLD_STEPS),
+                                      planar_align=NCCL_WORLD_STEPS,
+                                      derot_dft=NCCL_WORLD_STEPS),
           f"NCCL world launched {rep['launches']}")
     check(rep["counts"]["all_gather"]["calls"] == 0,
           f"NCCL world collectives {rep['counts']}")
@@ -1378,7 +1569,7 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     rx_clean, rx_cfo, data = head["rx_clean"], head["rx_cfo"], head["data"]
     kw = dict(n_blocks=head["nb"], guard_bands=True, modulation=MOD)
     want = {"clean": head["out_clean"], "CFO": head["out_cfo"]}
-    one_each = launches(sync_align=1, eq_demod_pack=1)
+    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
 
     # the data-sharded batch decoders: decode_frame's bytes, its launches
     for name, x in (("clean", rx_clean), ("CFO", rx_cfo)):
@@ -1391,9 +1582,10 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     for label, planes, extra, n_want in (
             ("contiguous planes", head["planes_in"], {}, one_each),
             ("strided view", head["view"], {},
-             launches(pin_rowmajor=1, sync_align=1, eq_demod_pack=1)),
+             launches(pin_rowmajor=1, sync_align=1, derot_dft=1,
+                      eq_demod_pack=1)),
             ("chunked", head["planes_in"], dict(align_impl="chunked"),
-             launches(sync_align_chunked=1, eq_demod_pack=1))):
+             launches(sync_align_chunked=1, derot_dft=1, eq_demod_pack=1))):
         out, n = counted(lambda: decode_frame_planar_sharded(planes, mesh,
                                                              **kw, **extra))
         check(n == n_want, f"decode_frame_planar_sharded {label} launched {n}")
@@ -1403,11 +1595,11 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
               f"decode_frame's; launches {n}")
 
     # the time-sharded decode: sync_keys + K3, bytes decode_frame's
-    ts_want = launches(sync_keys=1, planar_align=1)
+    ts_want = launches(sync_keys=1, planar_align=1, derot_dft=1)
     (ts_clean, ts_cfo), n_ts = counted(lambda: (
         decode_frame_timesharded(rx_clean, mesh, **kw),
         decode_frame_timesharded(rx_cfo, mesh, **kw)))
-    check(n_ts == launches(sync_keys=2, planar_align=2),
+    check(n_ts == launches(sync_keys=2, planar_align=2, derot_dft=2),
           f"decode_frame_timesharded x2 launched {n_ts}")
     check(torch.equal(ts_clean, want["clean"]), "decode_frame_timesharded "
           "clean: bytes differ from decode_frame's")
@@ -1456,7 +1648,8 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     # stream decoding at config 4 and the burst stream of phase 10
     s, rkw = streams["stream"], dict(streams["kw"])
     reg, n_reg = counted(lambda: decode_regular_sharded(s, mesh, **rkw))
-    check(n_reg == launches(planar_align=1, sync_align=1, eq_demod_pack=1),
+    check(n_reg == launches(planar_align=1, sync_align=1, derot_dft=1,
+                            eq_demod_pack=1),
           f"decode_regular_sharded launched {n_reg}")
     single = ott.decode_regular(s, **rkw, resync=True)
     check(np.array_equal(reg[0], single[0]) and np.array_equal(
@@ -1469,7 +1662,7 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
           f"byte errors; launches {n_reg}; synchronizing calls {n_sync}")
     bs, bkw = streams["burst"], streams["burst_kw"]
     found, n_burst = counted(lambda: decode_burst_sharded(bs, mesh, **bkw))
-    check(n_burst == launches(planar_align=1, eq_demod_pack=1),
+    check(n_burst == launches(planar_align=1, derot_dft=1, eq_demod_pack=1),
           f"decode_burst_sharded launched {n_burst}")
     ref = streams["burst_found"]
     check(len(found) == len(ref) == BURST_FRAMES and all(
@@ -1604,13 +1797,13 @@ def check_bench(line: dict, name_limit: str, seed: int, full: bool) -> None:
                                    else []), f"bench configs {sorted(d['configs'])}")
     for path in BENCH_GATES + (BENCH_CONFIG_GATES if full else ()):
         check(_at(d, path) == 0, f"bench gate {'.'.join(path)} = {_at(d, path)}")
-    k1_k2 = {"sync_align": 1, "eq_demod_pack": 1}
+    k1_k2 = {"sync_align": 1, "derot_dft": 1, "eq_demod_pack": 1}
     want = {("launches",): k1_k2, ("planar_input", "launches"): k1_k2}
     timers = [("ms_per_step",), ("planar_input", "ms_per_step")]
     if full:
         ham = ("configs", "hamming_streaming", "detail")
         srv = ("configs", "serving", "detail")
-        k3_k2 = {"planar_align": 1, "eq_demod_pack": 1}
+        k3_k2 = {"planar_align": 1, "derot_dft": 1, "eq_demod_pack": 1}
         want |= {(*ham, "launches"): k3_k2,
                  (*ham, "planar_input", "launches"): k3_k2}
         want |= {(*srv, mode, "launches"): dict(k1_k2, planar_align=1)
@@ -1780,6 +1973,7 @@ def main() -> None:
     template = constants.locking_for(ott.DEFAULT_CONFIG)
     k1_err = phase_sync_align(gen, dev, template)
     k2_err = phase_eq_demod(gen, dev)
+    derot = phase_derot_dft(dev)
 
     # phase 4: the port alone, end to end on the card
     nb = ott.n_data_blocks(PAYLOAD, MOD, True)
@@ -1797,8 +1991,9 @@ def main() -> None:
     # the main path alone between zeroing and reading the counters
     (out_clean, out_cfo), n_default = counted(
         lambda: (ott.decode_frame(rx_clean, **kw), ott.decode_frame(rx_cfo, **kw)))
-    check(n_default == launches(sync_align=2, eq_demod_pack=2),
-          f"decode_frame x2 launched {n_default}, want 2 each of K1 and K2")
+    check(n_default == launches(sync_align=2, derot_dft=2, eq_demod_pack=2),
+          f"decode_frame x2 launched {n_default}, want 2 each of K1, the "
+          "derot DFT and K2")
     check(tuple(out_clean.shape) == (BATCH, nb * 36),
           f"decode_frame shape {tuple(out_clean.shape)}")
     gates(out_clean, data, "decode_frame", cfo=False)
@@ -1808,7 +2003,7 @@ def main() -> None:
           f"{good}/{BATCH}; launches {n_default}")
 
     out_planar, n_planar = counted(lambda: ott.decode_frame_planar(planes_in, **kw))
-    check(n_planar == launches(sync_align=1, eq_demod_pack=1),
+    check(n_planar == launches(sync_align=1, derot_dft=1, eq_demod_pack=1),
           f"decode_frame_planar launched {n_planar}")
     check(torch.equal(out_planar, out_clean), "decode_frame_planar differs")
     payload0, n_decode = counted(
@@ -1946,7 +2141,7 @@ def main() -> None:
     bf = dict(kw, sync_dtype=torch.bfloat16)
     (b_clean, b_cfo), n_bf = counted(
         lambda: (ott.decode_frame(rx_clean, **bf), ott.decode_frame(rx_cfo, **bf)))
-    check(n_bf == launches(planar_align=2, eq_demod_pack=2),
+    check(n_bf == launches(planar_align=2, derot_dft=2, eq_demod_pack=2),
           f"decode_frame(sync_dtype=bfloat16) x2 launched {n_bf}")
     gates(b_clean, data, "bf16 sync", cfo=False)
     good = gates(b_cfo, data, "bf16 sync", cfo=True)
@@ -1956,7 +2151,7 @@ def main() -> None:
     for sd in ("fft", "conv"):
         out_sd, n_sd = counted(lambda: ott.decode_frame(rx_clean, sync_dtype=sd,
                                                         **kw))
-        check(n_sd == launches(planar_align=1, eq_demod_pack=1),
+        check(n_sd == launches(planar_align=1, derot_dft=1, eq_demod_pack=1),
               f"decode_frame(sync_dtype={sd!r}) launched {n_sd}")
         gates(out_sd, data, f"{sd} sync", cfo=False)
         print(f"phase 7 decode_frame sync_dtype={sd!r}: clean byte errors 0; "
@@ -1965,12 +2160,12 @@ def main() -> None:
     ch = dict(kw, align_impl="chunked")
     (c_clean, c_cfo), n_ch = counted(
         lambda: (ott.decode_frame(rx_clean, **ch), ott.decode_frame(rx_cfo, **ch)))
-    check(n_ch == launches(sync_align_chunked=2, eq_demod_pack=2),
+    check(n_ch == launches(sync_align_chunked=2, derot_dft=2, eq_demod_pack=2),
           f"decode_frame(align_impl='chunked') x2 launched {n_ch}")
     gates(c_clean, data, "chunked", cfo=False)
     good = gates(c_cfo, data, "chunked", cfo=True)
     c_planar, n_chp = counted(lambda: ott.decode_frame_planar(planes_in, **ch))
-    check(n_chp == launches(sync_align_chunked=1, eq_demod_pack=1),
+    check(n_chp == launches(sync_align_chunked=1, derot_dft=1, eq_demod_pack=1),
           f"decode_frame_planar(align_impl='chunked') launched {n_chp}")
     check(torch.equal(c_planar, c_clean), "chunked: planar input differs")
     routes["align_impl=chunked (K4 + K2)"] = (lambda: ott.decode_frame(rx_clean, **ch))
@@ -1979,7 +2174,8 @@ def main() -> None:
           f"chunked equal, launches {n_chp}")
 
     out_view, n_view = counted(lambda: ott.decode_frame_planar(view, **kw))
-    check(n_view == launches(pin_rowmajor=1, sync_align=1, eq_demod_pack=1),
+    check(n_view == launches(pin_rowmajor=1, sync_align=1, derot_dft=1,
+                             eq_demod_pack=1),
           f"decode_frame_planar on the strided view launched {n_view}")
     check(torch.equal(out_view, out_clean), "strided planar view differs")
     routes["decode_frame_planar, strided view (K5 + K1 + K2)"] = (
@@ -1999,7 +2195,7 @@ def main() -> None:
     (g_clean, g_cfo), n_160 = counted(
         lambda: (ott.decode_frame(rx160, **kw160),
                  ott.decode_frame(rx160_cfo, **kw160)))
-    check(n_160 == launches(planar_align=2, eq_demod_pack=2),
+    check(n_160 == launches(planar_align=2, derot_dft=2, eq_demod_pack=2),
           f"decode_frame 160-tap x2 launched {n_160}")
     gates(g_clean, data, "160-tap decode_frame", cfo=False)
     good = gates(g_cfo, data, "160-tap decode_frame", cfo=True)
@@ -2120,6 +2316,14 @@ def main() -> None:
     for e in kernels:
         e["max_abs_err"] = max(e["max_abs_err"], bench_err.get(e["name"], 0.0))
     bounds["sync_keys"] = keys["bound"]
+    bounds["derot_dft"] = derot["bound"]
+    dev_ms["derot_dft"], dev_ms["derot_dft plain"] = derot["ms"], derot["plain_ms"]
+    kernels.append(entry("derot_dft", "ofdm_tpu_torch/csrc/derot_dft.cu",
+                         "none: ofdm_tpu/ops/fft.py::"
+                         "dft_matmul_select_derot_planar, an XLA matmul",
+                         n_default["derot_dft"], derot["err"]))
+    # the figure the derot check holds to DEROT_TOL * n / 64
+    kernels[-1]["max_err_of_row_rms"] = derot["rel_rms_err"]
     dev_ms["sync_keys"], dev_ms["sync_keys plain"] = keys["ms"], keys["plain_ms"]
     kernels.append(entry("sync_keys", "ofdm_tpu_torch/csrc/sync_align.cu",
                          "ofdm_tpu/parallel/timeshard.py:135-147",

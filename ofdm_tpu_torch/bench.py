@@ -75,6 +75,7 @@ from .kernels import _build
 from .kernels.align import pin_rowmajor, planar_align, sync_align, sync_keys
 from .kernels.chain import sync_align_chunked
 from .kernels.demod import eq_demod_pack
+from .kernels.derot import derot_dft
 from .packets.colors import id_to_rgb
 from .packets.header import HEADER_LEN
 from .phy.channel import channel
@@ -107,7 +108,8 @@ TOP_ITEMS = 5
 KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
            "planar_align": planar_align,
            "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys}
+           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys,
+           "derot_dft": derot_dft}
 
 
 class GateError(RuntimeError):

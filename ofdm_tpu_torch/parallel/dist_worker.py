@@ -45,6 +45,7 @@ from ..kernels.align import (pin_rowmajor, planar_align, sync_align,  # noqa: E4
                              sync_keys)
 from ..kernels.chain import sync_align_chunked  # noqa: E402
 from ..kernels.demod import eq_demod_pack  # noqa: E402
+from ..kernels.derot import derot_dft  # noqa: E402
 from ..ops.fft import set_full_fp32  # noqa: E402
 from ..phy.modulation import Modulation  # noqa: E402
 from . import halo  # noqa: E402
@@ -124,7 +125,8 @@ KINDS = {"sync": _sync, "decode_frame": _decode_frame,
 KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
            "planar_align": planar_align,
            "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys}
+           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys,
+           "derot_dft": derot_dft}
 
 
 def _keywords(kw: dict) -> dict:

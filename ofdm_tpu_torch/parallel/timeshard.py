@@ -22,11 +22,11 @@ cross ranks; the sample axis is never gathered.  Per shard:
    them on every shard, exactly (each chunk has one owner).  CFO
    (src/receiver.rs:231-240) and the channel estimate (:212-229) are then
    computed on every shard with ``phy/rx.py``'s helpers.
-5. Each shard derotates, DFTs (``torch.bmm``, full fp32), equalizes,
-   removes the pilot phase and demodulates ONLY its local symbols, with the
-   symbol's global chunk index for the CFO phase.  The JAX tail is XLA, not
-   a Pallas kernel; K2's fixed per-block phase cannot take a per-row chunk
-   shift, so this tail is plain torch.
+5. Each shard derotates and DFTs (the ``derot_dft`` kernel, full fp32),
+   equalizes, removes the pilot phase and demodulates ONLY its local
+   symbols, with the symbol's global chunk index for the CFO phase.  The
+   JAX tail is XLA, not a Pallas kernel; K2's fixed per-block phase cannot
+   take a per-row chunk shift, so this tail is plain torch.
 6. Decoded bytes go into zeros at their block and one all_reduce(SUM) over
    time assembles them (exact: each byte has one owner); Hamming runs
    after that sum, with no further collective.

@@ -13,8 +13,8 @@ The batched path, ``decode_frame``, runs three stages on the input's device:
        slot-major chunk planes, decoded in slot order.
   2. the CFO estimate from the last two preamble chunks, the channel
      estimate from the training chunks, and the data DFT at the used bins.
-     "matrix" derot (the default) folds the within-symbol CFO phasor into a
-     per-row DFT matrix (a dense fp32 ``torch.bmm``); "stream" derot
+     "matrix" derot (the default) applies the within-symbol CFO phasor
+     inside the DFT (the ``derot_dft`` kernel, full fp32); "stream" derot
      rotates the aligned stream itself, as ``decode`` does.
   3. the tail: the ``eq_demod_pack`` kernel applies the per-chunk CFO phase
      (zero after stream derot), equalizes, removes the pilot phase,

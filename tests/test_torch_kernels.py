@@ -34,7 +34,10 @@ from ofdm_tpu_torch.kernels.align import (key_lag, key_power, pack_keys,
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
-from ofdm_tpu_torch.ops.fft import set_full_fp32
+from ofdm_tpu_torch.kernels.derot import derot_dft, kernel_bins, kernel_twiddle
+from ofdm_tpu_torch.ops.fft import (dft_matmul_select_derot_planar,
+                                    dft_matmul_select_derot_planar_reference,
+                                    set_full_fp32)
 from ofdm_tpu_torch.phy.modulation import BITS_PER_SYMBOL, modulate_bytes_packed
 
 torch.set_num_threads(1)
@@ -450,6 +453,155 @@ def test_sync_keys_rejects_bad_input(bad, err):
         bad(torch.as_tensor(_stream(TPL)))
 
 
+# --- the derot DFT: dft_matmul_select_derot_planar ---------------------------
+#
+# Tolerances are relative to each row's RMS sample.  The float32 forms (the
+# plain version's per-row matrix, the kernel's 8 x n/8 split) sum n float32
+# products each in its own order, so they differ from the float64 DFT and
+# from each other by up to ~n float32 epsilons of the terms' size: 2e-5 * n
+# / 64, chip_smoke.py's limit.  float64 agrees to 1e-12 up to 128 points;
+# above, the float64 DFT matrix's own entries, at angles up to 2 pi n, round
+# by ~n epsilons each and n of them are summed, so its limit grows as n**2.
+DEROT_N = [32, 64, 80, 128, 256]
+
+
+def _derot_tol(dtype: torch.dtype, n: int) -> float:
+    if dtype == torch.float32:
+        return 2e-5 * n / 64
+    return 1e-12 * max(1.0, n / 128) ** 2
+
+
+def _derot_bins(n: int, guard_bands: bool) -> tuple:
+    """The decode path's bins: every bin, or the 802.11a layout scaled to n
+    (data bins, then the four pilots; at n = 64 the port's own layout)."""
+    if not guard_bands:
+        return tuple(range(n))
+    pilots = (6, n // 2 - 7, n // 2 + 7, n - 6)
+    return tuple(b for b in range(6, n - 5)
+                 if b != n // 2 and b not in pilots) + pilots
+
+
+def _derot_case(n: int, dtype=torch.float32, rows: int = 3, blocks: int = 7,
+                seed: int = 0):
+    """(xr, xi, omega, sample_offset): strided [R, C, n] views of aligned
+    planes [R, 2, chunks * sym_len] past their sync chunks and cyclic
+    prefix, as ``decode_frame`` passes them, and a CFO per row."""
+    cp, n_sync = n // 4, 10
+    rng = np.random.default_rng(seed)
+    planes = torch.as_tensor(rng.standard_normal(
+        (rows, 2, (n_sync + blocks) * (n + cp)))).to(dtype)
+    v = planes.reshape(rows, 2, n_sync + blocks, n + cp)[:, :, n_sync:, cp:]
+    omega = torch.as_tensor(0.04 * rng.random(rows) - 0.02).to(dtype)
+    return v[:, 0], v[:, 1], omega, cp
+
+
+def _derot_oracle(xr, xi, bins, omega, offset) -> np.ndarray:
+    """The float64 numpy DFT at ``bins`` of the explicitly derotated
+    symbols."""
+    x = xr.double().cpu().numpy() + 1j * xi.double().cpu().numpy()
+    p = np.arange(x.shape[-1]) + offset
+    w = omega.double().cpu().numpy()[:, None, None]
+    return np.fft.fft(x * np.exp(-1j * w * p), axis=-1)[..., list(bins)]
+
+
+def _derot_err(yr, yi, want, xr, xi) -> float:
+    """Largest |y - want| over each row's RMS sample."""
+    got = yr.double().cpu().numpy() + 1j * yi.double().cpu().numpy()
+    rms = torch.sqrt((xr.double() ** 2 + xi.double() ** 2).mean((1, 2)))
+    return float((np.abs(got - want).max((1, 2)) / rms.cpu().numpy()).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("guard_bands", [False, True], ids=["all", "guard"])
+@pytest.mark.parametrize("n", DEROT_N)
+def test_derot_dft_reference_matches_numpy(n, guard_bands, dtype):
+    xr, xi, omega, offset = _derot_case(n, dtype)
+    bins = _derot_bins(n, guard_bands)
+    yr, yi = dft_matmul_select_derot_planar_reference(xr, xi, bins, omega,
+                                                      offset)
+    assert yr.shape == yi.shape == (*xr.shape[:2], len(bins))
+    assert yr.dtype == dtype and yr.stride() == yi.stride() \
+        == (xr.shape[1] * 2 * len(bins), 2 * len(bins), 1)
+    assert yi.data_ptr() == yr.data_ptr() + len(bins) * yr.element_size()
+    want = _derot_oracle(xr, xi, bins, omega, offset)
+    assert _derot_err(yr, yi, want, xr, xi) < _derot_tol(dtype, n)
+
+
+@pytest.mark.parametrize("guard_bands", [False, True], ids=["all", "guard"])
+@pytest.mark.parametrize("n", [8] + DEROT_N)
+def test_derot_dft_kernel_tables_give_the_dft(n, guard_bands):
+    """The kernel's split, in float64 numpy with the tables its wrapper
+    builds: 8-point DFTs over samples n/8 apart, then each bin's column of
+    n/8 twiddles against the 8-point output at bin mod 8."""
+    bins = _derot_bins(n, guard_bands) if n >= 32 else (7, 0, 3, 5)
+    x = np.random.default_rng(n).standard_normal((5, n, 2)) @ [1, 1j]
+    sel = kernel_bins(n, bins)
+    tw = kernel_twiddle(n, bins) @ [1, 1j]                # [n/8, k]
+    a = np.fft.fft(x.reshape(5, 8, n // 8), axis=1)           # [5, 8, n/8]
+    got = (a[:, sel % 8, :] * tw.T).sum(-1)
+    np.testing.assert_allclose(got, np.fft.fft(x)[:, list(bins)], rtol=0,
+                               atol=1e-12 * np.sqrt(n))
+
+
+@pytest.mark.parametrize("bad", [
+    lambda xr, xi, w: (xr, xi[:, :-1], w),          # xi one block short
+    lambda xr, xi, w: (xr, xi[..., :-8], w),        # xi's symbols shorter
+    lambda xr, xi, w: (xr[0], xi[0], w),            # not [R, C, n]
+    lambda xr, xi, w: (xr, xi, w[:-1]),             # omega one row short
+    lambda xr, xi, w: (xr, xi, w[:, None]),         # omega [R, 1]
+    lambda xr, xi, w: (xr, xi, w[0]),               # omega a scalar
+    lambda xr, xi, w: (xr, xi, w.double()),         # omega of another dtype
+], ids=["blocks", "symbols", "2d", "omega short", "omega column",
+        "omega scalar", "omega dtype"])
+def test_derot_dft_rejects_bad_input(bad):
+    xr, xi, omega, offset = _derot_case(64)
+    args = bad(xr, xi, omega)
+    for form in (dft_matmul_select_derot_planar,
+                 dft_matmul_select_derot_planar_reference):
+        with pytest.raises(ValueError):
+            form(args[0], args[1], _derot_bins(64, True), args[2], offset)
+
+
+def test_derot_dft_on_cpu_runs_the_plain_version():
+    xr, xi, omega, offset = _derot_case(64)
+    bins = _derot_bins(64, True)
+    before = derot_dft.launches
+    got = dft_matmul_select_derot_planar(xr, xi, bins, omega, offset)
+    ref = dft_matmul_select_derot_planar_reference(xr, xi, bins, omega, offset)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert derot_dft.launches == before
+
+
+def test_derot_dft_on_another_device_raises():
+    xr, xi, omega, offset = _derot_case(64)
+    meta = [t.to("meta") for t in (xr, xi, omega)]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dft_matmul_select_derot_planar(meta[0], meta[1], _derot_bins(64, True),
+                                       meta[2], offset)
+
+
+@pytest.mark.parametrize("n,dtype,bins,offset,err", [
+    (48, torch.float32, None, 12, "n_fft"),
+    (8, torch.float32, (7, 0, 3, 5), 2, "n_fft"),
+    (64, torch.float32, (), 16, "bins"),
+    (64, torch.float32, None, -1, "sample_offset"),
+    (64, torch.float32, None, 16, "float32 CUDA"),     # a CPU tensor
+    (64, torch.float64, None, 16, "float32 CUDA"),
+], ids=["n48", "n8", "no bins", "offset", "cpu", "f64"])
+def test_derot_dft_kernel_refuses_what_it_does_not_take(n, dtype, bins, offset,
+                                                        err):
+    """The kernel's wrapper refuses, before any launch, the inputs the
+    kernel is not built for: on the card these raise, with no other form
+    to fall back to."""
+    xr, xi, omega, _ = _derot_case(n, dtype)
+    bins = _derot_bins(n, True) if bins is None else bins
+    before = derot_dft.launches
+    with pytest.raises(ValueError, match=err):
+        derot_dft(xr, xi, bins, omega, offset)
+    assert derot_dft.launches == before
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phases 2-3 run this "
@@ -726,3 +878,42 @@ def test_sync_keys_kernel_matches_plain(name):
         assert key_lag(got).tolist() == list(first)
         torch.testing.assert_close(key_power(got), key_power(ref), rtol=1e-6,
                                    atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guard_bands", [False, True], ids=["all", "guard"])
+@pytest.mark.parametrize("n", DEROT_N)
+def test_derot_dft_kernel_matches_plain(n, guard_bands):
+    """The kernel on strided plane views and on lane-sliced slots (the
+    chunked route's 128 lanes; wider for 256 points), against the plain
+    version and the float64 DFT; float64 planes and an n_fft the kernel is
+    not built for raise on the card.  Covered on the card by chip_smoke.py's
+    derot_dft phase."""
+    dev = _cuda()
+    bins = _derot_bins(n, guard_bands)
+    xr, xi, omega, offset = (t.to(dev) if torch.is_tensor(t) else t
+                             for t in _derot_case(n, rows=5, blocks=40))
+    width = max(128, n + 64)
+    slots = torch.zeros((2, 5, 40, width), device=dev)
+    lanes = slice(width - n, width)
+    slots[0, :, :, lanes], slots[1, :, :, lanes] = xr, xi
+    for pr, pi in ((xr, xi), (slots[0, :, :, lanes], slots[1, :, :, lanes])):
+        before = derot_dft.launches
+        yr, yi = dft_matmul_select_derot_planar(pr, pi, bins, omega, offset)
+        assert derot_dft.launches == before + 1
+        rr, ri = dft_matmul_select_derot_planar_reference(pr, pi, bins, omega,
+                                                          offset)
+        assert yr.stride() == rr.stride() and yi.stride() == ri.stride()
+        assert yi.data_ptr() - yr.data_ptr() == ri.data_ptr() - rr.data_ptr()
+        want = _derot_oracle(pr, pi, bins, omega, offset)
+        plain = rr.double().cpu().numpy() + 1j * ri.double().cpu().numpy()
+        assert _derot_err(yr, yi, plain, pr, pi) < _derot_tol(torch.float32, n)
+        assert _derot_err(yr, yi, want, pr, pi) < _derot_tol(torch.float32, n)
+    before = derot_dft.launches
+    d = [t.double() for t in (xr, xi, omega)]
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        dft_matmul_select_derot_planar(d[0], d[1], bins, d[2], offset)
+    with pytest.raises(ValueError, match="n_fft"):
+        dft_matmul_select_derot_planar(xr[..., :-8], xi[..., :-8], bins[:4],
+                                       omega, offset)
+    assert derot_dft.launches == before
