@@ -33,7 +33,9 @@ def shapes(cfg: dict, tr: dict) -> dict:
     return {"k1": {"rows": rows, "t": cfg["row_samples"], "need": need},
             "k2": {"rows": rows, "blocks": nb, "bins": bins,
                    "carriers": carriers,
-                   "bits": frame.BITS_PER_SYMBOL[mod]}}
+                   "bits": frame.BITS_PER_SYMBOL[mod]},
+            "derot": {"rows": rows, "blocks": nb, "n": frame.N_FFT,
+                      "bins": bins}}
 
 
 class Cell:

@@ -31,7 +31,9 @@ def shapes(cfg: dict, tr: dict) -> dict:
     return {"k3": {"rows": rows, "need": traffic.frame_len(cfg)},
             "k2": {"rows": rows, "blocks": nb, "bins": bins,
                    "carriers": carriers,
-                   "bits": frame.BITS_PER_SYMBOL[mod]}}
+                   "bits": frame.BITS_PER_SYMBOL[mod]},
+            "derot": {"rows": rows, "blocks": nb, "n": frame.N_FFT,
+                      "bins": bins}}
 
 
 class Cell:

@@ -15,6 +15,9 @@ that passes ``correct`` to the same work, and none can read above 100%.
 - K2 ``eq_demod_pack`` (equalize, demodulate, pack): reads f32 DFT planes
   [rows, blocks, 2 bins], complex64 channel [rows, bins] and f32 CFO
   [rows], writes uint8 [rows, blocks * carriers * bits / 8].
+- ``derot_dft`` (derotate and DFT at the selected bins): reads f32 real and
+  imaginary planes [rows, blocks, n] and f32 CFO [rows], writes f32
+  [rows, blocks, 2 bins].
 """
 
 COMPLEX64 = 8
@@ -34,3 +37,8 @@ def k2_eq_demod_pack(rows: int, blocks: int, bins: int, carriers: int,
                      bits: int) -> int:
     return (rows * blocks * 2 * bins * F32 + rows * bins * COMPLEX64
             + rows * F32 + rows * blocks * carriers * bits // 8)
+
+
+def derot_dft(rows: int, blocks: int, n: int, bins: int) -> int:
+    return (2 * rows * blocks * n * F32 + rows * blocks * 2 * bins * F32
+            + rows * F32)

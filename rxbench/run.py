@@ -77,12 +77,28 @@ def power_limit() -> str | None:
 
 
 def launch_counters() -> dict:
-    """The program's launch counters of its hand kernels."""
-    from ofdm_tpu_torch.kernels.align import planar_align, sync_align
-    from ofdm_tpu_torch.kernels.demod import eq_demod_pack
-    return {"sync_align": sync_align.launches,
-            "planar_align": planar_align.launches,
-            "eq_demod_pack": eq_demod_pack.launches}
+    """The launch counters of the program's hand kernels, by function name:
+    every function of a public module of ``ofdm_tpu_torch.kernels`` that
+    carries an int ``launches``.  A new kernel's counter is found with no
+    edit here; two counted functions of one name raise."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import ofdm_tpu_torch.kernels as kernels
+    found = {}
+    for info in pkgutil.iter_modules(kernels.__path__):
+        if info.name.startswith("_"):
+            continue
+        mod = importlib.import_module(f"{kernels.__name__}.{info.name}")
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            n = getattr(fn, "launches", None)
+            if fn.__module__ != mod.__name__ or type(n) is not int:
+                continue
+            if name in found:
+                raise RuntimeError(f"two launch counters named {name!r}")
+            found[name] = n
+    return found
 
 
 def prepare_program(device: torch.device) -> None:

@@ -3,6 +3,7 @@ folders, cut to sizes a CPU decodes in a moment."""
 
 from __future__ import annotations
 
+import copy
 import json
 import shutil
 import sys
@@ -54,6 +55,19 @@ def shrink(data: Path, rows: int = 4, payload: int = 64, frames: int = 3,
     return data
 
 
+@pytest.fixture(autouse=True, scope="session")
+def one_thread():
+    """One CPU thread for torch: the tiny cells' calls then take steady
+    milliseconds on a host shared with other work, where a pool of threads
+    makes some calls tens of times slower and backs up the live cell's
+    open loop."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def tiny(tmp_path) -> Path:
     return shrink(copy_data(tmp_path / "data"))
@@ -75,38 +89,57 @@ STREAM_CELLS = {
 }
 
 
+STREAM_CONFIG = {"name": "rx_stream_hamming_qam64", "source": "PERF.md",
+                 "file": "rxbench/configs/rx_stream_hamming_qam64.json",
+                 "reduced": [], "why": "stream decode"}
+STREAM_END_TO_END = [
+    {"name": "latency_p95_ms", "unit": "ms", "better": "lower",
+     "bound": 0.25, "source": "host_clock",
+     "workloads": ["live_stream_hamming_qam64_f2048"]}]
+STREAM_PER_LAYER = [
+    {"name": "planar_align_roofline", "unit": "%", "better": "higher",
+     "source": "device_trace", "layer": "sync and align",
+     "moves": "decoded_samples_per_s",
+     "workloads": ["stream_hamming_qam64_f2048"]},
+    {"name": "service_ms_p50.live", "unit": "ms", "better": "lower",
+     "source": "host_clock", "layer": "live loop",
+     "moves": "latency_p95_ms",
+     "workloads": ["live_stream_hamming_qam64_f2048"]},
+    {"name": "generator_lag_ms.live", "unit": "ms", "better": "lower",
+     "source": "host_clock", "layer": "live loop",
+     "moves": "latency_p95_ms",
+     "workloads": ["live_stream_hamming_qam64_f2048"]}]
+
+
+def add_missing(group: list, entries: list) -> None:
+    """Append to a list of named entries each entry whose name it lacks."""
+    have = {e["name"] for e in group}
+    group += [copy.deepcopy(e) for e in entries if e["name"] not in have]
+
+
+def add_cell_to(metric: dict, cell: str) -> None:
+    """List a cell among a metric's cells, where the metric lists its cells
+    and not yet this one."""
+    if "workloads" in metric and cell not in metric["workloads"]:
+        metric["workloads"].append(cell)
+
+
 def with_streams(bench: dict) -> dict:
-    """BENCHMARK.json with the stream cells that have their files under
-    rxbench/ but no entry yet (PERF.md, Open questions): a closed-loop
-    stream cell and the live feed, with the metrics they report."""
-    import copy
+    """BENCHMARK.json with the stream cells whose files are under rxbench/:
+    a closed-loop stream cell and the live feed, with the metrics they
+    report.  Only what the benchmark lacks is added, each entry matched by
+    name, so the cells run here whether they are committed or not, and a
+    second application changes nothing."""
     b = copy.deepcopy(bench)
-    b["configs"].append({"name": "rx_stream_hamming_qam64", "source": "PERF.md",
-                         "file": "rxbench/configs/rx_stream_hamming_qam64.json",
-                         "reduced": [], "why": "stream decode"})
-    for cell, tr in STREAM_CELLS.items():
-        b["workloads"].append({"name": cell, "config": "rx_stream_hamming_qam64",
-                               "traffic": tr, "chips": 1, "why": "a test"})
-    rate = next(m for m in b["end_to_end"]
-                if m["name"] == "decoded_samples_per_s")
-    rate["workloads"].append("stream_hamming_qam64_f2048")
-    b["end_to_end"].append(
-        {"name": "latency_p95_ms", "unit": "ms", "better": "lower",
-         "bound": 0.25, "source": "host_clock",
-         "workloads": ["live_stream_hamming_qam64_f2048"]})
-    b["per_layer"] += [
-        {"name": "planar_align_roofline", "unit": "%", "better": "higher",
-         "source": "device_trace", "layer": "sync and align",
-         "moves": "decoded_samples_per_s",
-         "workloads": ["stream_hamming_qam64_f2048"]},
-        {"name": "service_ms_p50.live", "unit": "ms", "better": "lower",
-         "source": "host_clock", "layer": "live loop",
-         "moves": "latency_p95_ms",
-         "workloads": ["live_stream_hamming_qam64_f2048"]},
-        {"name": "generator_lag_ms.live", "unit": "ms", "better": "lower",
-         "source": "host_clock", "layer": "live loop",
-         "moves": "latency_p95_ms",
-         "workloads": ["live_stream_hamming_qam64_f2048"]}]
+    add_missing(b["configs"], [STREAM_CONFIG])
+    add_missing(b["workloads"], [
+        {"name": cell, "config": STREAM_CONFIG["name"], "traffic": tr,
+         "chips": 1, "why": "a test"} for cell, tr in STREAM_CELLS.items()])
+    add_cell_to(next(m for m in b["end_to_end"]
+                     if m["name"] == "decoded_samples_per_s"),
+                "stream_hamming_qam64_f2048")
+    add_missing(b["end_to_end"], STREAM_END_TO_END)
+    add_missing(b["per_layer"], STREAM_PER_LAYER)
     return b
 
 

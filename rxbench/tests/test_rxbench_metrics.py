@@ -10,6 +10,7 @@ from rxbench.metrics import kernel_bytes
 from conftest import with_streams
 
 KIND = "NVIDIA H100 80GB HBM3"
+DEROT = {"rows": 2048, "blocks": 228, "n": 64, "bins": 52}
 
 
 def cell_shapes(name: str) -> dict:
@@ -28,6 +29,9 @@ def test_shapes_of_the_batch_cell():
     assert kernel_bytes.k1_sync_align(**s["k1"]) == 625_222_272
     # 194,248,704 planes + 851,968 channel + 8,192 CFO + 16,809,984 bytes out
     assert kernel_bytes.k2_eq_demod_pack(**s["k2"]) == 211_918_848
+    assert s["derot"] == DEROT
+    # 2 x 119,537,664 planes + 194,248,704 product + 8,192 CFO
+    assert kernel_bytes.derot_dft(**s["derot"]) == 433_332_224
 
 
 def test_shapes_of_the_stream_cell():
@@ -37,6 +41,7 @@ def test_shapes_of_the_stream_cell():
     # 311,951,360 windows read + 16,384 offsets + 311,951,360 planes
     assert kernel_bytes.k3_planar_align(**s["k3"]) == 623_919_104
     assert kernel_bytes.k2_eq_demod_pack(**s["k2"]) == 211_918_848
+    assert s["derot"] == DEROT
 
 
 def view(**kw) -> trace.View:
@@ -106,3 +111,24 @@ def test_breakdown_names_the_host_in_each_gap():
     names = dict(b["idle_gaps"])
     assert names["rxbench.wait/cudaEventSynchronize"] == pytest.approx(0.0011)
     assert sum(names.values()) == pytest.approx(0.0022)
+
+
+def test_derot_dft_roofline_on_a_made_up_trace():
+    # two calls of 0.165 ms against a bound of 0.1294 ms: 78.4%
+    items = [("void derot_dft_kernel<8>(float const*, ...)", t, t + 0.000165)
+             for t in (0.0045, 0.0095)]
+    v = view(device=view().device + items,
+             counters={"derot_dft": 2, "sync_align": 2},
+             shapes={"derot": DEROT})
+    assert read("derot_dft_roofline", v) == pytest.approx(
+        100 * 433_332_224 / 3.35e12 / 0.000165)
+    assert 78 < read("derot_dft_roofline", v) < 79
+    assert read("derot_dft_roofline", view(device=v.device,
+                                           counters=v.counters)) is None
+    assert read("derot_dft_roofline", view(device=v.device,
+                                           shapes=v.shapes)) is None
+    assert read("derot_dft_roofline", view(device=v.device,
+                                           counters=v.counters,
+                                           shapes=v.shapes,
+                                           kind="a card not in the table")) \
+        is None

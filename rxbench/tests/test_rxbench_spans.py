@@ -107,10 +107,12 @@ def test_idle_needs_every_marker(spans):
 
 
 def test_the_four_entries_validate(bench):
+    """The four entries are there and read in the batch cell; other cells
+    may join the benchmark and these metrics."""
     entries = {m["name"]: m for m in bench["per_layer"]}
     for name in NAMES:
         m = entries[name]
         assert m["source"] == "program_span" and m["unit"] == "ms"
         assert m["moves"] == "decoded_samples_per_s"
-        assert m["workloads"] == ["batch_qam64_b2048"]
-    assert registry.validate(registry.benchmark()) == ["batch_qam64_b2048"]
+        assert "batch_qam64_b2048" in m["workloads"]
+    assert "batch_qam64_b2048" in registry.validate(registry.benchmark())
