@@ -6,7 +6,7 @@
 Builds the host code under native/ (the RS codec and the IQ loader,
 ``ofdm_tpu_torch.core.native.build``, which reloads the port's modules that
 load them), then the CUDA kernels from ofdm_tpu_torch/csrc/ (one nvcc per
-source, all at once), and runs seventeen phases:
+source, all at once), and runs eighteen phases:
 
   1. device: card name and power limit, TF32 flags, kernel build time;
   2. sync_align (K1) against its plain PyTorch version: headline shape with
@@ -33,6 +33,15 @@ source, all at once), and runs seventeen phases:
      the two batches: the payload on every clean row, >= 95% of the CFO
      rows exact.  The kernel's device time beside its bound and the plain
      version's;
+ 3c. decode_frame's CUDA graphs (``phy/graphs.py``) at the batch
+     benchmark's shape: 4 batches of 2,048 rows of 8,192-byte QAM64
+     payloads (batch 0 clean, 1-3 with CFO), each decoded eager first, then
+     captured and replayed: the replayed bytes equal the eager bytes on all
+     4, a held result survives later calls, and the call counts are exact
+     (4 eager, 4 captures, the rest replays).  Prints the host's enqueue ms
+     a call eager and replayed (the card idle before each call), ms a step
+     over 50 back-to-back calls each way (CUDA events), the counts and the
+     peak memory;
   4. end to end on the card: 256 x 8,192-byte payloads, encode (QAM64,
      guard bands), channel at SNR 45 without and with CFO, decode_frame on
      both.  The clean batch must decode with 0 byte errors, >= 95% of the
@@ -240,6 +249,7 @@ from ofdm_tpu_torch.parallel.pipeline import (  # noqa: E402
     decode_regular_sharded, make_pipeline_step)
 from ofdm_tpu_torch.parallel.timeshard import (  # noqa: E402
     channel_timesharded_fn, decode_frame_timesharded)
+from ofdm_tpu_torch.phy import graphs as graphs_mod  # noqa: E402
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
 from ofdm_tpu_torch.packets.colors import id_to_rgb  # noqa: E402
 from ofdm_tpu_torch.phy import streaming as streaming_mod  # noqa: E402
@@ -676,6 +686,97 @@ def phase_derot_dft(dev) -> dict:
     return {"ms": k_ms, "plain_ms": p_ms, "bound": (b_ms, b_by),
             "err": worst_abs, "rel_rms_err": worst_rel,
             "launches": n["derot_dft"]}
+
+
+def phase_graphs(dev) -> None:
+    """Phase 3c: decode_frame's CUDA graphs at the batch benchmark's shape
+    (see the module docstring)."""
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    cfg = ott.DEFAULT_CONFIG
+    nb = ott.n_data_blocks(PAYLOAD, MOD, True)
+    rows = 8 * BATCH
+    frame = cfg.sync_len + cfg.sym_len + nb * cfg.sym_len
+    kw = dict(n_blocks=nb, guard_bands=True, modulation=MOD)
+    data, xs = [], []
+    for i in range(4):
+        d = torch.randint(0, 256, (rows, PAYLOAD), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        tx = ott.encode(d, guard_bands=True, modulation=MOD)
+        data.append(d)
+        xs.append(pad_rows(ott.channel(tx, snr=SNR, timing_error=i > 0,
+                                       generator=gen), frame))
+    del tx
+    decode = rx_mod.decode_frame
+
+    def calls():
+        return (decode.eager_calls, decode.graph_captures,
+                decode.graph_replays)
+
+    def enqueue_ms(x) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode(x, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    graphs_mod.release()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = calls()
+    eager = [decode(x, **kw) for x in xs]
+    for i, (d, out) in enumerate(zip(data, eager)):
+        gates(out, d, f"decode_frame batch {i}", cfo=i > 0)
+    for _ in range(3):
+        for i, (x, want) in enumerate(zip(xs, eager)):
+            check(torch.equal(decode(x, **kw), want),
+                  f"graphs: replayed bytes of batch {i} differ from eager")
+    held = decode(xs[0], **kw)
+    copy = held.clone()
+    for x in xs * 2:
+        decode(x, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(held, copy), "graphs: a held result changed")
+    n = tuple(a - b for a, b in zip(calls(), c0))
+    check(n == (4, 4, 17), f"graphs: eager, captures, replays {n}")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    replay_ms = [enqueue_ms(xs[i % 4]) for i in range(40)]
+    eager_ms = []
+    for i in range(40):
+        graphs_mod.release()            # a key never seen: the call runs eager
+        eager_ms.append(enqueue_ms(xs[i % 4]))
+    for i in range(4):                  # the graphs back for the step times
+        decode(xs[i], **kw)
+        decode(xs[i], **kw)
+
+    def step_ms(fresh: bool) -> float:
+        def fn():
+            for i in range(50):
+                if fresh:
+                    graphs_mod.release()
+                decode(xs[i % 4], **kw)
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 50
+
+    graphed, eager_step = step_ms(False), step_ms(True)
+    print(f"phase 3c graphs: decode_frame at {rows} x {PAYLOAD} B QAM64 "
+          f"(T={frame}), 4 batches: replayed bytes equal eager on all 4, a "
+          f"held result unchanged; calls eager / captures / replays {n}; "
+          f"host enqueue ms a call eager median "
+          f"{statistics.median(eager_ms):.4f} (min {min(eager_ms):.4f}), "
+          f"replayed median {statistics.median(replay_ms):.4f} (min "
+          f"{min(replay_ms):.4f}); ms a step over 50 back-to-back calls "
+          f"eager {eager_step:.4f}, replayed {graphed:.4f}; peak memory "
+          f"{peak} B")
+    graphs_mod.release()
 
 
 def gates(out, data, name: str, cfo: bool) -> int:
@@ -1918,6 +2019,9 @@ def serving_kernels(dev) -> dict:
             sent = serving.encode_rows(pixels[b])
             for form, x in (("complex", buf),
                             ("planar", torch.stack([buf.real, buf.imag]))):
+                # keys never seen, so the held kernels run eager (a replayed
+                # graph would not call them)
+                graphs_mod.release()
                 raw = serving.serve_step(x, BENCH_SRV_FRAMES).cpu().numpy()
                 errs = int((raw != sent).sum())
                 check(errs == 0, f"bench serving buffer {b} {form}: {errs} "
@@ -1974,6 +2078,7 @@ def main() -> None:
     k1_err = phase_sync_align(gen, dev, template)
     k2_err = phase_eq_demod(gen, dev)
     derot = phase_derot_dft(dev)
+    phase_graphs(dev)
 
     # phase 4: the port alone, end to end on the card
     nb = ott.n_data_blocks(PAYLOAD, MOD, True)

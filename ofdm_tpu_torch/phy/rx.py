@@ -21,7 +21,10 @@ The batched path, ``decode_frame``, runs three stages on the input's device:
      demodulates and packs the bytes.
 
 A non-contiguous input is made row-major by the ``pin_rowmajor`` kernel
-first.  On a CPU tensor every kernel runs its plain PyTorch version.  The
+first.  On a card, stages 1 and 2 of a call repeated on the same input are
+captured into CUDA graphs by the second such call and replayed by later ones
+(``graphs.py``); the tail runs eager into a fresh output.  On a CPU tensor
+every kernel runs its plain PyTorch version.  The
 JAX package's TPU lowering selectors ``demod_impl`` and ``dft_precision``
 are not ported: the tail is always ``eq_demod_pack`` and every DFT is full
 fp32 (ofdm_tpu_torch/PARITY.md).
@@ -49,6 +52,7 @@ from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_derot_planar,
                        dft_matmul_select_planar, require_full_fp32)
 from ..ops.xcorr import MAX_TAPS, check_sync_dtype, locking_sync_offset
 from ..packets.header import HEADER_LEN, Header
+from . import graphs
 from .modulation import Modulation, _pad_last
 
 ALIGN_IMPLS = ("auto", "fused", "fused_planar", "chunked", "xla", "pallas")
@@ -197,6 +201,23 @@ def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
                              blocks=blocks)
 
 
+def _front(planes: torch.Tensor, *, n_chunks: int, derot: str,
+           guard_bands: bool, cfg: FrameConfig, cfo_estimator: str):
+    """The front half on aligned f32 planes [R, 2, n_chunks * sym_len]:
+    (yr, yi, h_k, phase, f_delta, rotated), ``phase`` the per-chunk CFO
+    rate the tail applies (f_delta, or zeros after stream derot) and
+    ``rotated`` the derotated chunks (stream derot; None for matrix)."""
+    cp = planes.reshape(planes.shape[0], 2, n_chunks, cfg.sym_len)
+    kw = dict(guard_bands=guard_bands, cfg=cfg, cfo_estimator=cfo_estimator)
+    with profiler.span("rx.front", planes):
+        if derot == "matrix":
+            yr, yi, h_k, f_delta = _matrix_front(cp[:, 0], cp[:, 1], **kw)
+            return yr, yi, h_k, f_delta, f_delta, None
+        chunks = torch.complex(cp[:, 0], cp[:, 1])
+        yr, yi, h_k, f_delta, rotated = _stream_front(chunks, **kw)
+        return yr, yi, h_k, torch.zeros_like(f_delta), f_delta, rotated
+
+
 def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
                    guard_bands: bool, modulation: Modulation, cfg: FrameConfig,
                    cfo_estimator: str, diag: bool = False,
@@ -208,28 +229,22 @@ def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
     it in plain torch from the same planes (``decode``'s diagnostics and
     taps ask for it, no decode path does)."""
     sym = cfg.sym_len
-    cp = planes.reshape(planes.shape[0], 2, n_chunks, sym)
-    kw = dict(guard_bands=guard_bands, cfg=cfg, cfo_estimator=cfo_estimator)
-    with profiler.span("rx.front", planes):
-        if derot == "matrix":
-            yr, yi, h_k, f_delta = _matrix_front(cp[:, 0], cp[:, 1], **kw)
-            phase = f_delta
-        else:
-            chunks = torch.complex(cp[:, 0], cp[:, 1])
-            yr, yi, h_k, f_delta, rotated = _stream_front(chunks, **kw)
-            phase = torch.zeros_like(f_delta)
+    yr, yi, h_k, phase, f_delta, rotated = _front(
+        planes, n_chunks=n_chunks, derot=derot, guard_bands=guard_bands,
+        cfg=cfg, cfo_estimator=cfo_estimator)
     out = _tail(yr, yi, h_k, phase, guard_bands=guard_bands,
                 modulation=modulation, cfg=cfg)
     if not diag:
         return out, None
     # the reference's debug taps (src/receiver.rs:41,52,58)
+    cp = planes.reshape(planes.shape[0], 2, n_chunks, sym)
+    pre = torch.complex(cp[:, 0, 6], cp[:, 1, 6])
     if derot == "matrix":
-        pre = torch.complex(cp[:, 0, 6], cp[:, 1, 6])
         idx = torch.arange(sym, dtype=f_delta.dtype, device=f_delta.device) \
             + 6 * sym
         post = pre * _phasor(f_delta[:, None] * idx)
     else:
-        pre, post = chunks[:, 6], rotated[:, 6]
+        post = rotated[:, 6]
     eq = None
     if equalized:
         h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
@@ -383,18 +398,12 @@ def _resolve_route(align_impl: str, derot_impl: str, sync_dtype,
     return route, derot
 
 
-def _decode_batch(flat: torch.Tensor, *, n_blocks: int, guard_bands: bool,
-                  modulation: Modulation, cfg: FrameConfig, sync_dtype,
-                  search_window: int | None, cfo_estimator: str,
-                  align_impl: str, derot_impl: str) -> torch.Tensor:
-    """Decode complex64 [R, T] or f32 [R, 2, T] rows by the chosen route."""
-    route, derot = _resolve_route(align_impl, derot_impl, sync_dtype, cfg)
-    require_full_fp32(flat.device)
-    n_chunks = cfg.n_sync_chunks + n_blocks
-    need = n_chunks * cfg.sym_len
+def _sync(flat: torch.Tensor, *, route: str, need: int, cfg: FrameConfig,
+          sync_dtype, search_window: int | None):
+    """Sync and align complex64 [R, T] or f32 [R, 2, T] rows by ``route``:
+    f32 planes [R, 2, need], or on the chunked route K4's (chunk planes,
+    m_per)."""
     template = locking_template(cfg)
-    kw = dict(guard_bands=guard_bands, modulation=modulation, cfg=cfg,
-              cfo_estimator=cfo_estimator)
     with profiler.span("rx.sync", flat):
         if flat.shape[-1] < need:
             flat = _pad_last(flat, need - flat.shape[-1])
@@ -403,24 +412,71 @@ def _decode_batch(flat: torch.Tensor, *, n_blocks: int, guard_bands: bool,
         t = flat.shape[-1]
         if route == "chunked":
             chun, _, m_per = sync_align_chunked(
-                flat, template, n_chunks=n_chunks, cfg=cfg,
+                flat, template, n_chunks=need // cfg.sym_len, cfg=cfg,
                 search_window=search_window)
-        elif route == "fused":
-            planes, _ = sync_align(flat, template, need,
-                                   search_window=search_window, planar=True)
-        else:
-            cplx = flat if flat.dim() == 2 \
-                else torch.complex(flat[:, 0], flat[:, 1])
-            scan = cplx if search_window is None \
-                else cplx[:, :search_window + cfg.sym_len]
-            offsets = torch.clamp(
-                sync_offset(scan, cfg, compute_dtype=sync_dtype), 0, t - need)
-            planes = planar_align(flat, offsets, need, planar=True)
+            return chun, m_per
+        if route == "fused":
+            return sync_align(flat, template, need,
+                              search_window=search_window, planar=True)[0]
+        cplx = flat if flat.dim() == 2 \
+            else torch.complex(flat[:, 0], flat[:, 1])
+        scan = cplx if search_window is None \
+            else cplx[:, :search_window + cfg.sym_len]
+        offsets = torch.clamp(
+            sync_offset(scan, cfg, compute_dtype=sync_dtype), 0, t - need)
+        return planar_align(flat, offsets, need, planar=True)
+
+
+def _decode_batch(entry, x: torch.Tensor, flatten, *, n_blocks: int,
+                  guard_bands: bool, modulation: Modulation, cfg: FrameConfig,
+                  sync_dtype, search_window: int | None, cfo_estimator: str,
+                  align_impl: str, derot_impl: str) -> torch.Tensor:
+    """Decode the rows ``flatten(x)`` (complex64 [R, T] or f32 [R, 2, T]) by
+    the chosen route.  On a card, the sync and the front half of the fused
+    and unfused routes run through ``graphs.run`` (captured by the second
+    call with the same input and selectors, then replayed), the tail eager
+    into a fresh output; the call is counted on ``entry``."""
+    route, derot = _resolve_route(align_impl, derot_impl, sync_dtype, cfg)
+    require_full_fp32(x.device)
+    n_chunks = cfg.n_sync_chunks + n_blocks
+    kw = dict(guard_bands=guard_bands, modulation=modulation, cfg=cfg,
+              cfo_estimator=cfo_estimator)
+
+    def sync(samples):
+        return _sync(flatten(samples), route=route,
+                     need=n_chunks * cfg.sym_len, cfg=cfg,
+                     sync_dtype=sync_dtype, search_window=search_window)
+
+    def front(planes):
+        return _front(planes, n_chunks=n_chunks, derot=derot,
+                      guard_bands=guard_bands, cfg=cfg,
+                      cfo_estimator=cfo_estimator)[:4]
+
     if route == "chunked":
+        if x.is_cuda:
+            entry.eager_calls += 1
+        chun, m_per = sync(x)
         return decode_chunked_matrix(chun, n_chunks=n_chunks, m_per=m_per, **kw)
-    return _decode_planes(planes, n_chunks=n_chunks, derot=derot, **kw)[0]
+    if x.is_cuda:
+        selectors = (n_blocks, guard_bands, modulation, cfg, sync_dtype,
+                     search_window, cfo_estimator, align_impl, derot_impl)
+        yr, yi, h_k, phase = graphs.run(
+            entry, x, selectors, (("rx.sync", sync), ("rx.front", front)))
+    else:
+        yr, yi, h_k, phase = front(sync(x))
+    return _tail(yr, yi, h_k, phase, guard_bands=guard_bands,
+                 modulation=modulation, cfg=cfg)
 
 
+def _complex_rows(samples: torch.Tensor) -> torch.Tensor:
+    return samples.to(torch.complex64).reshape(-1, samples.shape[-1])
+
+
+def _planar_rows(planes: torch.Tensor) -> torch.Tensor:
+    return planes.to(torch.float32).reshape(-1, 2, planes.shape[-1])
+
+
+@graphs.entry_point
 def decode_frame(samples: torch.Tensor, *, n_blocks: int,
                  guard_bands: bool = False,
                  modulation: Modulation = Modulation.BPSK,
@@ -459,14 +515,22 @@ def decode_frame(samples: torch.Tensor, *, n_blocks: int,
     combination a route cannot take, raises ValueError.  The JAX package's
     ``demod_impl`` and ``dft_precision`` are TPU lowering knobs and are not
     ported: the tail is always ``eq_demod_pack`` and every DFT is full fp32.
+
+    On a card, the fused and unfused routes' sync and front half run as
+    CUDA graphs once a call repeats: the same input (address, shape,
+    strides, dtype, device), stream and selectors.  The first such call runs
+    eager, the second captures, later ones replay (``graphs.py``); the bytes
+    are the same, and the returned tensor is always the caller's own.
+    ``decode_frame.graph_captures``, ``.graph_replays`` and ``.eager_calls``
+    count the CUDA calls each way.
     """
     with profiler.span("rx.decode_frame", samples):
         squeeze = samples.dim() == 1
         if squeeze:
             samples = samples[None, :]
         lead = samples.shape[:-1]
-        flat = samples.to(torch.complex64).reshape(-1, samples.shape[-1])
-        out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+        out = _decode_batch(decode_frame, samples, _complex_rows,
+                            n_blocks=n_blocks, guard_bands=guard_bands,
                             modulation=modulation, cfg=cfg,
                             sync_dtype=sync_dtype, search_window=search_window,
                             cfo_estimator=cfo_estimator, align_impl=align_impl,
@@ -475,6 +539,7 @@ def decode_frame(samples: torch.Tensor, *, n_blocks: int,
         return out[0] if squeeze else out
 
 
+@graphs.entry_point
 def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
                         guard_bands: bool = False,
                         modulation: Modulation = Modulation.BPSK,
@@ -490,7 +555,10 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
     copy of the stream.  A strided view, such as
     ``torch.view_as_real(rx).transpose(1, 2)``, is made row-major by the
     ``pin_rowmajor`` kernel first; a contiguous input is not copied.  The
-    TPU's pre-tiled [..., 2, tiles, 128] form is not taken."""
+    TPU's pre-tiled [..., 2, tiles, 128] form is not taken.  Repeated calls
+    run as CUDA graphs as ``decode_frame``'s do, counted in
+    ``decode_frame_planar.graph_captures``, ``.graph_replays`` and
+    ``.eager_calls``."""
     if planes.dim() < 2 or planes.shape[-2] != 2:
         raise ValueError(f"planes must be [..., 2, T], got {tuple(planes.shape)}")
     with profiler.span("rx.decode_frame", planes):
@@ -498,8 +566,8 @@ def decode_frame_planar(planes: torch.Tensor, *, n_blocks: int,
         if squeeze:
             planes = planes[None]
         lead = planes.shape[:-2]
-        flat = planes.to(torch.float32).reshape(-1, 2, planes.shape[-1])
-        out = _decode_batch(flat, n_blocks=n_blocks, guard_bands=guard_bands,
+        out = _decode_batch(decode_frame_planar, planes, _planar_rows,
+                            n_blocks=n_blocks, guard_bands=guard_bands,
                             modulation=modulation, cfg=cfg,
                             sync_dtype=sync_dtype, search_window=search_window,
                             cfo_estimator=cfo_estimator, align_impl=align_impl,
