@@ -20,7 +20,7 @@ source, all at once), and runs eighteen phases:
      also through a block table (the chunked route's slot order), and
      QAM64 with guard bands but no pilots.  Bytes must be identical;
  3b. the derot DFT kernel (``kernels/derot.py::derot_dft``, behind
-     ``ops/fft.py::dft_matmul_select_derot_planar``) against its plain
+     ``kernels/derot.py::dft_matmul_select_derot_planar``) against its plain
      version at the batch benchmark's shape, 2,048 rows of 8,192-byte QAM64
      payloads (228 blocks, 52 bins, guard bands) on K1's strided plane
      views of a clean and a CFO batch, all 64 bins, K4's lane-sliced
@@ -215,7 +215,7 @@ from ofdm_tpu_torch.apps import (ber_sweep, datatoframe, lab3a, lab3b,  # noqa: 
                                  lab3b_image, lab3c, lab3c_image, monitor,
                                  probe, rx_stream, stream_bytes, transmitloop)
 from ofdm_tpu_torch.apps.common import seeded_image  # noqa: E402
-from ofdm_tpu_torch.bench import (KERNELS, SRV_DISTINCT as BENCH_SRV_DISTINCT,  # noqa: E402
+from ofdm_tpu_torch.bench import (SRV_DISTINCT as BENCH_SRV_DISTINCT,  # noqa: E402
                                   SRV_FRAMES as BENCH_SRV_FRAMES, card,
                                   device_ms, median_s, reset_launches)
 from ofdm_tpu_torch.core import native  # noqa: E402
@@ -226,7 +226,7 @@ from ofdm_tpu_torch.fec import reed_solomon as rs  # noqa: E402
 from ofdm_tpu_torch.io import capture as capture_mod  # noqa: E402
 from ofdm_tpu_torch.io import iqfile, serving  # noqa: E402
 from ofdm_tpu_torch.io.feed import SampleFeed, double_buffered  # noqa: E402
-from ofdm_tpu_torch.kernels import _build  # noqa: E402
+from ofdm_tpu_torch.kernels import _build, counters  # noqa: E402
 from ofdm_tpu_torch.kernels.align import (key_lag, key_power,  # noqa: E402
                                           pin_rowmajor, pin_rowmajor_reference,
                                           planar_align, planar_align_reference,
@@ -235,13 +235,13 @@ from ofdm_tpu_torch.kernels.align import (key_lag, key_power,  # noqa: E402
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
-from ofdm_tpu_torch.kernels.derot import derot_dft  # noqa: E402
+from ofdm_tpu_torch.kernels.derot import (  # noqa: E402
+    derot_dft, dft_matmul_select_derot_planar)
 from ofdm_tpu_torch.obs import ber_theory, profiler  # noqa: E402
 from ofdm_tpu_torch.obs.analysis import bit_errors  # noqa: E402
 from ofdm_tpu_torch.obs.logging import set_up_logging  # noqa: E402
 from ofdm_tpu_torch.ops.fft import (  # noqa: E402
-    dft_matmul_select_derot_planar, dft_matmul_select_derot_planar_reference,
-    set_full_fp32)
+    dft_matmul_select_derot_planar_reference, set_full_fp32)
 from ofdm_tpu_torch.parallel import halo as halo_mod  # noqa: E402
 from ofdm_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from ofdm_tpu_torch.parallel.pipeline import (  # noqa: E402
@@ -249,6 +249,7 @@ from ofdm_tpu_torch.parallel.pipeline import (  # noqa: E402
     decode_regular_sharded, make_pipeline_step)
 from ofdm_tpu_torch.parallel.timeshard import (  # noqa: E402
     channel_timesharded_fn, decode_frame_timesharded)
+from ofdm_tpu_torch.phy import front  # noqa: E402
 from ofdm_tpu_torch.phy import graphs as graphs_mod  # noqa: E402
 from ofdm_tpu_torch.phy import rx as rx_mod  # noqa: E402
 from ofdm_tpu_torch.packets.colors import id_to_rgb  # noqa: E402
@@ -334,12 +335,12 @@ def counted(fn):
     reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in KERNELS.items()}
+    return out, {name: k.launches for name, k in counters().items()}
 
 
 def launches(**want) -> dict:
     """The exact count dict of a route: the named kernels, every other 0."""
-    return {name: want.get(name, 0) for name in KERNELS}
+    return {name: want.get(name, 0) for name in counters()}
 
 
 def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -455,7 +456,7 @@ def synth_tail(gen, dev, mod, guard_bands, snr=SNR):
     """Tail inputs with a known answer: symbols through a random channel, a
     per-chunk CFO rotation, a pilot phase and noise at ``snr``."""
     cfg = ott.DEFAULT_CONFIG
-    sel, nd, n_pilots = rx_mod._selected_bins(guard_bands, cfg)
+    sel, nd, n_pilots = front.selected_bins(guard_bands, cfg)
     nb = ott.n_data_blocks(PAYLOAD, mod, guard_bands)
     bpb = nd * BITS_PER_SYMBOL[mod] // 8
     sent = torch.randint(0, 256, (BATCH, nb * bpb), generator=gen, device=dev,
@@ -576,7 +577,7 @@ def phase_derot_dft(dev) -> dict:
     rx_clean, rx_cfo = (
         pad_rows(ott.channel(tx, snr=SNR, timing_error=cfo, generator=gen), frame)
         for cfo in (False, True))
-    sel = rx_mod._selected_bins(True, cfg)[0]
+    sel = front.selected_bins(True, cfg)[0]
     worst_rel, worst_abs = 0.0, 0.0
 
     def compare(label, xr, xi, bins, omega, offset):
@@ -627,9 +628,9 @@ def phase_derot_dft(dev) -> dict:
                              locking_seed=7)
     cfg256 = ott.FrameConfig(n_fft=256, cp_len=64, locking_seed=7)
     for n, cp_len, bins in ((32, 8, tuple(range(32))),
-                            (128, 32, rx_mod._selected_bins(True, cfg160)[0]),
+                            (128, 32, front.selected_bins(True, cfg160)[0]),
                             (128, 32, tuple(range(128))),
-                            (256, 64, rx_mod._selected_bins(True, cfg256)[0]),
+                            (256, 64, front.selected_bins(True, cfg256)[0]),
                             (256, 64, tuple(range(256)))):
         sym = n + cp_len
         v = torch.randn((BATCH, 2, (cfg.n_sync_chunks + nb) * sym),
@@ -1439,7 +1440,7 @@ def phase_apps(dev, name_limit: str) -> None:
 
     seed = cfo_seed(dev)
     cwd = os.getcwd()
-    for k in KERNELS.values():
+    for k in counters().values():
         k.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -1502,7 +1503,7 @@ def phase_apps(dev, name_limit: str) -> None:
                   f"probe: {out.splitlines()[2].strip()}")
         finally:
             os.chdir(cwd)
-    n_apps = {name: k.launches for name, k in KERNELS.items()}
+    n_apps = {name: k.launches for name, k in counters().items()}
     # lab3a, lab3b, lab3c, 2 monitor buffers, 2 image apps, 8 + 1 rx_stream
     # buffers: one decode each (K1 1 + K2 1); the --continuous buffer goes
     # through decode_burst (K3 1 + derot DFT 1 + K2 1)
@@ -2138,7 +2139,7 @@ def main() -> None:
             cp[:, 0], cp[:, 1], guard_bands=True, cfg=ott.DEFAULT_CONFIG,
             cfo_estimator="coherent")
         k2 = rx_mod._tail(yr, yi, h_k, f_delta, **tail_kw)
-        sel = list(rx_mod._selected_bins(True, ott.DEFAULT_CONFIG)[0])
+        sel = list(front.selected_bins(True, ott.DEFAULT_CONFIG)[0])
         ti = (yr, yi, h_k[:, sel].contiguous(), f_delta)
         k2_ref = eq_demod_pack_reference(*ti, **plain_kw)
         k2_err = max(k2_err, (k2.int() - k2_ref.int()).abs().max().item())

@@ -71,11 +71,7 @@ from .core import native
 from .core.transfer import fetch_async
 from .fec import reed_solomon as rs
 from .io import serving
-from .kernels import _build
-from .kernels.align import pin_rowmajor, planar_align, sync_align, sync_keys
-from .kernels.chain import sync_align_chunked
-from .kernels.demod import eq_demod_pack
-from .kernels.derot import derot_dft
+from .kernels import _build, counters
 from .packets.colors import id_to_rgb
 from .packets.header import HEADER_LEN
 from .phy.channel import channel
@@ -104,13 +100,6 @@ SRV_FRAMES = 390
 SRV_ROUNDS = 25
 SRV_IN_FLIGHT = 4
 TOP_ITEMS = 5
-
-KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
-           "planar_align": planar_align,
-           "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys,
-           "derot_dft": derot_dft}
-
 
 class GateError(RuntimeError):
     """An output differs from what was sent: no number is reported."""
@@ -141,7 +130,7 @@ def summary(ms: list[float]) -> dict:
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
+    for k in counters().values():
         k.launches = 0
 
 
@@ -149,7 +138,7 @@ def launches_per(n: int) -> dict:
     """Each launched kernel's count since ``reset_launches`` over n steps
     (the wrappers count CUDA launches only)."""
     return {name: k.launches // n if k.launches % n == 0 else k.launches / n
-            for name, k in KERNELS.items() if k.launches}
+            for name, k in counters().items() if k.launches}
 
 
 def timed(step, n: int, dev: torch.device, warmup: int = WARMUP) -> dict:

@@ -16,8 +16,8 @@ from . import constants
 from .config import DEFAULT_CONFIG, FrameConfig
 from .ops.fft import _dft_matrix, _dft_select_planes
 from .ops.xcorr import _toeplitz_template, _toeplitz_template_real, template_key
+from .phy.front import selected_bins
 from .phy.modulation import Modulation
-from .phy.rx import _selected_bins
 
 
 def frame_config_from_reference(cfg) -> FrameConfig:
@@ -45,7 +45,7 @@ def tables(cfg: FrameConfig = DEFAULT_CONFIG) -> dict[str, np.ndarray]:
         "idft": _dft_matrix(cfg.n_fft, True),
     }
     for gb in (False, True):
-        sel, _, _ = _selected_bins(gb, cfg)
+        sel, _, _ = selected_bins(gb, cfg)
         wr, wi = _dft_select_planes(cfg.n_fft, sel, "float32")
         out[f"dft_select_re_gb{int(gb)}"] = wr
         out[f"dft_select_im_gb{int(gb)}"] = wi

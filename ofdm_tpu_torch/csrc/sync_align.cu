@@ -62,7 +62,7 @@
 //     first-occurrence tie-breaking are bitwise what the one-lag-per-thread
 //     loop gave.  (Measured on the H100 at the decode path's shape: 8 lags
 //     and 128 threads were the fastest of 8-16 lags and 128-256 threads,
-//     python -m ofdm_tpu_torch.kernels.corr_breakdown; a grid-stride loop
+//     each a rebuild of this file, profiled; a grid-stride loop
 //     that loaded the next tile during the current one's taps, into
 //     registers or by cp.async, was not faster.)
 //   kernel 2 (window, K1; chunk, K4): grid (rows, copy blocks).  Each block

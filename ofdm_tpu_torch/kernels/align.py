@@ -136,12 +136,8 @@ def sync_align_reference(flat: torch.Tensor, template, need: int,
 @lru_cache(maxsize=None)
 def sync_lib() -> ctypes.CDLL:
     """The ``csrc/sync_align.cu`` library (kernels 1, 3, 4 and
-    ``sync_keys``), loaded once."""
-    return declare_sync_lib(_build.library("sync_align"))
-
-
-def declare_sync_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures of a library built from ``csrc/sync_align.cu``."""
+    ``sync_keys``), loaded once with its C signatures set."""
+    lib = _build.library("sync_align")
     lib.ofdm_sync_align_n_partial.restype = ctypes.c_int
     lib.ofdm_sync_align_n_partial.argtypes = [ctypes.c_int]
     lib.ofdm_sync_align.restype = ctypes.c_int

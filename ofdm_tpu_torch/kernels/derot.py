@@ -12,8 +12,7 @@ chip, so nothing per row is written to device memory.  All in float32, with
 no TF32 and no fast-math intrinsics: the same sums of float32 products as
 the plain version, in another order.
 
-``ops/fft.py::dft_matmul_select_derot_planar`` dispatches here for CUDA
-tensors; it is the entry point the decode paths call.
+``dft_matmul_select_derot_planar``, the decode paths' entry, dispatches here.
 """
 
 from __future__ import annotations
@@ -24,7 +23,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops.fft import _check_derot_planar, device_table
+from ..ops.fft import (check_derot_planar, device_table,
+                       dft_matmul_select_derot_planar_reference)
 from . import _build
 
 # the n_fft the kernel is built for: the package's geometries
@@ -48,7 +48,7 @@ def kernel_twiddle(n: int, bins: tuple) -> np.ndarray:
 
 
 def _check(xr, xi, bins, omega, sample_offset):
-    _check_derot_planar(xr, xi, omega)
+    check_derot_planar(xr, xi, omega)
     n = xr.shape[-1]
     if n not in N_FFT:
         raise ValueError(f"derot_dft is built for n_fft in {N_FFT}, got {n}")
@@ -104,3 +104,20 @@ def derot_dft(xr: torch.Tensor, xi: torch.Tensor, bins: tuple,
 
 
 derot_dft.launches = 0
+
+
+def dft_matmul_select_derot_planar(xr: torch.Tensor, xi: torch.Tensor,
+                                   bins: tuple, omega: torch.Tensor,
+                                   sample_offset: int = 0):
+    """y[r, c, k] = sum_p x[r, c, p] exp(-i omega[r] (sample_offset + p))
+    W[p, bins[k]] from planes xr, xi float[R, C, n] (read in place) and
+    omega float[R], as (yr, yi) [R, C, k], views of one [R, C, 2k] tensor:
+    the plain version (``ops/fft.py``) on a CPU tensor, ``derot_dft`` (which
+    refuses what it is not built for) on CUDA; any other device raises."""
+    if xr.device.type == "cpu":
+        return dft_matmul_select_derot_planar_reference(xr, xi, bins, omega,
+                                                        sample_offset)
+    if xr.device.type != "cuda":
+        raise ValueError("dft_matmul_select_derot_planar runs on cpu or cuda, "
+                         f"not {xr.device}")
+    return derot_dft(xr, xi, bins, omega, sample_offset)

@@ -7,9 +7,9 @@ one real product
     [xr xi] @ [[Wr, Wi], [-Wi, Wr]] = [xr@Wr - xi@Wi,  xr@Wi + xi@Wr]
 
 and left to ``torch.matmul``.  Forward transforms are unnormalized, inverse
-ones scaled by 1/N (numpy's convention, as the reference's).  The one
-exception is the decode path's derotated DFT at the selected bins, which on
-CUDA is a hand-written kernel (``dft_matmul_select_derot_planar``).
+ones scaled by 1/N (numpy's convention, as the reference's).  The decode
+path's derotated DFT at the selected bins is a hand-written kernel on CUDA
+(``kernels/derot.py``); its plain version is here.
 
 On CUDA these products must run in full fp32: ``require_full_fp32`` refuses
 to run while TF32 is allowed for matmuls or cuDNN convolutions, and
@@ -219,8 +219,8 @@ def _derot_select_matrix(n: int, bins: tuple, omega: torch.Tensor,
     return top, bot
 
 
-def _check_derot_planar(xr: torch.Tensor, xi: torch.Tensor,
-                        omega: torch.Tensor) -> None:
+def check_derot_planar(xr: torch.Tensor, xi: torch.Tensor,
+                       omega: torch.Tensor) -> None:
     if xr.dim() != 3 or xr.shape != xi.shape:
         raise ValueError(f"xr and xi must share one [R, C, n] shape, got "
                          f"{tuple(xr.shape)} and {tuple(xi.shape)}")
@@ -239,45 +239,12 @@ def dft_matmul_select_derot_planar_reference(xr: torch.Tensor,
     """Plain version of ``dft_matmul_select_derot_planar``: the
     within-symbol phasor folded into a per-row matrix (``top``, ``bot``),
     then ``xr @ top + xi @ bot`` as two batched products."""
-    _check_derot_planar(xr, xi, omega)
+    check_derot_planar(xr, xi, omega)
     k = len(bins)
     top, bot = _derot_select_matrix(xr.shape[-1], tuple(bins), omega,
                                     sample_offset)
     out = torch.baddbmm(torch.bmm(xr, top), xi, bot)
     return out[..., :k], out[..., k:]
-
-
-def dft_matmul_select_derot_planar(xr: torch.Tensor, xi: torch.Tensor,
-                                   bins: tuple, omega: torch.Tensor,
-                                   sample_offset: int = 0):
-    """DFT at ``bins`` of per-row CFO-derotated symbols, from real/imag planes.
-
-    xr, xi: float[R, C, n] (strided views of the aligned planes are fine:
-    both forms read them in place).  omega: float[R], of the planes' dtype.
-    Computes
-    y[r, c, k] = sum_p x[r, c, p] exp(-i omega[r] (sample_offset + p)) W[p, bins[k]]
-    with no derotated copy of the stream.  The per-chunk phase
-    exp(-i omega c sym_len) is left to the caller.
-
-    A CPU tensor runs ``dft_matmul_select_derot_planar_reference`` (the
-    phasor folded into a per-row DFT matrix, then batched products).  A CUDA
-    tensor launches the ``derot_dft`` kernel (``kernels/derot.py``, counted
-    in ``derot_dft.launches``), which computes each row's phasor itself and
-    keeps the DFT tables on chip; it takes float32 planes with n_fft one of
-    32, 64, 80, 128 and 256 and 1 to 256 bins, and raises ValueError for
-    anything else.  Any other device raises.
-
-    Returns planes (yr, yi), each [R, C, k]: two views of one contiguous
-    [R, C, 2k] product, with a row stride of C*2k and a block stride of 2k.
-    """
-    if xr.device.type == "cpu":
-        return dft_matmul_select_derot_planar_reference(xr, xi, bins, omega,
-                                                        sample_offset)
-    if xr.device.type != "cuda":
-        raise ValueError("dft_matmul_select_derot_planar runs on cpu or cuda, "
-                         f"not {xr.device}")
-    from ..kernels.derot import derot_dft
-    return derot_dft(xr, xi, bins, omega, sample_offset)
 
 
 def dft_matmul_select_derot(x: torch.Tensor, bins: tuple, omega: torch.Tensor,

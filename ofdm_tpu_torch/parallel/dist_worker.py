@@ -41,11 +41,7 @@ import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from ..config import FrameConfig  # noqa: E402
-from ..kernels.align import (pin_rowmajor, planar_align, sync_align,  # noqa: E402
-                             sync_keys)
-from ..kernels.chain import sync_align_chunked  # noqa: E402
-from ..kernels.demod import eq_demod_pack  # noqa: E402
-from ..kernels.derot import derot_dft  # noqa: E402
+from ..kernels import counters  # noqa: E402
 from ..ops.fft import set_full_fp32  # noqa: E402
 from ..phy.modulation import Modulation  # noqa: E402
 from . import halo  # noqa: E402
@@ -121,14 +117,6 @@ KINDS = {"sync": _sync, "decode_frame": _decode_frame,
          "timeshard": _timeshard, "channel": _channel, "pipeline": _pipeline}
 
 
-# the kernel wrappers whose launches a case reports
-KERNELS = {"sync_align": sync_align, "eq_demod_pack": eq_demod_pack,
-           "planar_align": planar_align,
-           "sync_align_chunked": sync_align_chunked,
-           "pin_rowmajor": pin_rowmajor, "sync_keys": sync_keys,
-           "derot_dft": derot_dft}
-
-
 def _keywords(kw: dict) -> dict:
     """A case's JSON keywords as the functions take them: ``modulation``
     by its value, ``cfg`` as FrameConfig fields."""
@@ -171,7 +159,8 @@ def run_rank(rank: int, nprocs: int, port: int, spec: dict, inputs,
             args = {k[len(prefix):]: inputs[k] for k in inputs.files
                     if k.startswith(prefix)}
             halo.reset_counts()
-            for k in KERNELS.values():
+            kernels = counters()
+            for k in kernels.values():
                 k.launches = 0
             t0 = time.perf_counter()
             res = KINDS[case["kind"]](mesh, args, _keywords(case.get("kw", {})))
@@ -180,7 +169,7 @@ def run_rank(rank: int, nprocs: int, port: int, spec: dict, inputs,
             report["cases"][name] = {
                 "coord": [axis_index(mesh, DATA_AXIS), axis_index(mesh, TIME_AXIS)],
                 "counts": halo.counts(),
-                "launches": {n: k.launches for n, k in KERNELS.items()},
+                "launches": {n: k.launches for n, k in kernels.items()},
                 "seconds": seconds}
         report["ok"] = True
     except Exception:

@@ -21,7 +21,7 @@ cross ranks; the sample axis is never gathered.  Per shard:
    chunks it owns into zeros and one all_reduce(SUM) over time assembles
    them on every shard, exactly (each chunk has one owner).  CFO
    (src/receiver.rs:231-240) and the channel estimate (:212-229) are then
-   computed on every shard with ``phy/rx.py``'s helpers.
+   computed on every shard by ``phy/front.py``.
 5. Each shard derotates and DFTs (the ``derot_dft`` kernel, full fp32),
    equalizes, removes the pilot phase and demodulates ONLY its local
    symbols, with the symbol's global chunk index for the CFO phase.  The
@@ -48,14 +48,12 @@ from ..fec import hamming
 from ..kernels.align import (argmax_keys, key_lag, pack_keys, planar_align,
                               sync_keys)
 from ..ops.convolve import convolve_direct
-from ..ops.fft import (dft_matmul_select_derot_planar, dft_matmul_select_planar,
-                       real_dtype, require_full_fp32)
+from ..ops.fft import dft_matmul_select_planar, real_dtype, require_full_fp32
 from ..ops.xcorr import MAX_TAPS, sliding_correlation
+from ..phy import front
 from ..phy.modulation import (BITS_PER_SYMBOL, Modulation, _pad_last,
                               demodulate_symbols_packed)
-from ..phy.rx import (_cfo_estimate_lr, _channel_estimate, _h_selected,
-                      _phasor, _resolve_derot, _selected_bins,
-                      locking_template)
+from ..phy.rx import locking_template
 from .halo import all_reduce, global_key_max, left_halo, right_halo
 from .mesh import (DATA_AXIS, TIME_AXIS, axis_index, axis_size, shard,
                    time_sharding)
@@ -128,16 +126,15 @@ def timesharded_decode_fn(mesh, *, n_blocks: int, guard_bands: bool,
         raise ValueError(f"timesharded fec supports None/'hamming', got {fec!r}")
     if fec == "hamming" and not (payload_len and data_len):
         raise ValueError("fec='hamming' needs payload_len and data_len")
-    derot = _resolve_derot(derot_impl)
+    derot = front.resolve_derot(derot_impl)
     sym, cp = cfg.sym_len, cfg.cp_len
     n_sync = cfg.n_sync_chunks
     need = (n_sync + n_blocks) * sym
     n_time = axis_size(mesh, TIME_AXIS)
     bpb = _bytes_per_block(cfg, guard_bands, modulation)
     template = locking_template(cfg).astype(np.complex64)
-    sel, nd, n_pilots = _selected_bins(guard_bands, cfg)
-    last = cfg.n_locking + cfg.n_preamble - 1
-    t0 = cfg.n_locking + cfg.n_preamble
+    sel, nd, n_pilots = front.selected_bins(guard_bands, cfg)
+    left, right, train = front.estimate_chunks(cfg)
 
     def local_fn(shard_: torch.Tensor) -> torch.Tensor:
         b_loc, t_loc = shard_.shape
@@ -176,32 +173,29 @@ def timesharded_decode_fn(mesh, *, n_blocks: int, guard_bands: bool,
         sc = torch.complex(sync[:, 0], sync[:, 1])
 
         # --- CFO and channel estimate on every shard ------------------------
-        f_delta = _cfo_estimate_lr(sc[:, last - 1], sc[:, last], cfg,
-                                   cfo_estimator)                    # [B]
-        h_k = _channel_estimate(sc[:, t0:t0 + cfg.n_training, cp:], f_delta,
-                                cfg)
-        h_sel = _h_selected(h_k, guard_bands, cfg)[0]
+        f_delta, h_k = front.estimates(sc[:, left], sc[:, right], sc[:, train, cp:],
+                                       cfg=cfg, cfo_estimator=cfo_estimator)
+        h_sel = front.h_selected(h_k, guard_bands, cfg)[0]
 
         # --- local symbols: derotate, DFT, equalize, pilot phase, demod -----
         rd = f_delta.dtype
         chunk_angle = f_delta[:, None] * (cidx.to(rd) * sym)          # [B, M]
         if derot == "matrix":
-            yr, yi = dft_matmul_select_derot_planar(
-                planes[:, 0, :, cp:], planes[:, 1, :, cp:], sel, f_delta,
-                sample_offset=cp)
-            y = torch.complex(yr, yi) * _phasor(chunk_angle)[..., None]
+            yr, yi = front.derot_spectrum(planes[:, 0], planes[:, 1], f_delta,
+                                          guard_bands=guard_bands, cfg=cfg)
+            y = torch.complex(yr, yi) * front.phasor(chunk_angle)[..., None]
         else:
-            rot_j = _phasor(f_delta[:, None]
-                            * torch.arange(sym, dtype=rd, device=dev))
+            rot_j = front.phasor(f_delta[:, None]
+                                 * torch.arange(sym, dtype=rd, device=dev))
             win = torch.complex(planes[:, 0], planes[:, 1]) * (
-                _phasor(chunk_angle)[..., None] * rot_j[:, None, :])
+                front.phasor(chunk_angle)[..., None] * rot_j[:, None, :])
             yr, yi = dft_matmul_select_planar(win[..., cp:], sel)
             y = torch.complex(yr, yi)
         eq = y / h_sel[:, None, :]
         syms = eq[..., :nd]
         if n_pilots:
             phi = torch.angle(eq[..., nd:nd + n_pilots]).mean(-1, keepdim=True)
-            syms = syms * _phasor(phi)
+            syms = syms * front.phasor(phi)
         by = demodulate_symbols_packed(syms, modulation)           # [B, M, bpb]
 
         # --- bytes: owned blocks into zeros, summed over time ---------------

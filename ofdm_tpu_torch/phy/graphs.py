@@ -32,18 +32,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import inspect
-import sys
 import threading
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
+from ..kernels import counters
 from ..obs import profiler
 
 MAX_GRAPHS = 8      # keys that keep their graphs
 MAX_SEEN = 64       # keys seen once, waiting for a second call
-KERNELS = __name__.rsplit(".", 2)[0] + ".kernels."
 
 
 def key(x: torch.Tensor, stream_id: int, selectors: tuple) -> tuple:
@@ -130,16 +128,6 @@ def entry_point(fn):
     return fn
 
 
-def _counters() -> list:
-    """The hand kernels' wrappers: the functions of the loaded modules of
-    the kernels package that carry an int ``launches``."""
-    return [fn for name, mod in list(sys.modules.items())
-            if name.startswith(KERNELS) and mod is not None
-            for fn in vars(mod).values()
-            if inspect.isfunction(fn) and fn.__module__ == name
-            and type(getattr(fn, "launches", None)) is int]
-
-
 def _chain(stages, x):
     for _, fn in stages:
         x = fn(x)
@@ -149,8 +137,8 @@ def _chain(stages, x):
 def _capture(stages, x, stream, pool, pk) -> Graphs:
     """Run the stages once on the side stream, then capture each into its
     own graph there; the kernels' counters are left as they were."""
-    counters = _counters()      # the key's eager call imported them all
-    before = [fn.launches for fn in counters]
+    wrappers = list(counters().values())
+    before = [fn.launches for fn in wrappers]
     side = _side.get(x.device)
     if side is None:
         side = _side[x.device] = torch.cuda.Stream(x.device)
@@ -159,7 +147,7 @@ def _capture(stages, x, stream, pool, pk) -> Graphs:
     try:
         with torch.cuda.stream(side):
             _chain(stages, x)   # lazily made state (workspaces, plans) first
-            at = [fn.launches for fn in counters]
+            at = [fn.launches for fn in wrappers]
             out = x
             for _, fn in stages:
                 g = torch.cuda.CUDAGraph()
@@ -170,11 +158,11 @@ def _capture(stages, x, stream, pool, pk) -> Graphs:
                     g.capture_end()
                 pool = g.pool()
                 graphs.append(g)
-        launches = [(fn, fn.launches - a) for fn, a in zip(counters, at)
+        launches = [(fn, fn.launches - a) for fn, a in zip(wrappers, at)
                     if fn.launches != a]
     finally:
         stream.wait_stream(side)
-        for fn, b in zip(counters, before):
+        for fn, b in zip(wrappers, before):
             fn.launches = b
     return Graphs(graphs, out, launches, pk)
 

@@ -11,8 +11,8 @@ The batched path, ``decode_frame``, runs three stages on the input's device:
        taps), then the ``planar_align`` kernel copies the windows;
      - chunked: the ``sync_align_chunked`` kernel writes the window as
        slot-major chunk planes, decoded in slot order.
-  2. the CFO estimate from the last two preamble chunks, the channel
-     estimate from the training chunks, and the data DFT at the used bins.
+  2. the front half (``front.py``): the CFO and channel estimates from the
+     preamble and training chunks, and the data DFT at the used bins.
      "matrix" derot (the default) applies the within-symbol CFO phasor
      inside the DFT (the ``derot_dft`` kernel, full fp32); "stream" derot
      rotates the aligned stream itself, as ``decode`` does.
@@ -48,15 +48,14 @@ from ..kernels.align import pin_rowmajor, planar_align, sync_align
 from ..kernels.chain import sync_align_chunked
 from ..kernels.demod import eq_demod_pack, equalized_symbols
 from ..obs import profiler, taps
-from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_derot_planar,
-                       dft_matmul_select_planar, require_full_fp32)
+from ..ops.fft import (device_table, dft_matmul, dft_matmul_select_planar,
+                       require_full_fp32)
 from ..ops.xcorr import MAX_TAPS, check_sync_dtype, locking_sync_offset
 from ..packets.header import HEADER_LEN, Header
-from . import graphs
+from . import front, graphs
 from .modulation import Modulation, _pad_last
 
 ALIGN_IMPLS = ("auto", "fused", "fused_planar", "chunked", "xla", "pallas")
-DEROT_IMPLS = ("auto", "matrix", "stream")
 
 
 @lru_cache(maxsize=None)
@@ -80,53 +79,6 @@ def sync_offset(samples: torch.Tensor, cfg: FrameConfig = DEFAULT_CONFIG,
                                compute_dtype=compute_dtype)
 
 
-def _cfo_estimate_lr(left: torch.Tensor, right: torch.Tensor,
-                     cfg: FrameConfig, estimator: str) -> torch.Tensor:
-    """f_delta from two consecutive preamble chunks [..., sym_len].
-
-    "reference": |mean of the per-sample angles of right/left| / sym_len, the
-    reference's estimator (src/receiver.rs:231-240), which loses frames when
-    noise wraps single angles past +-pi.  "coherent": |angle of
-    sum(right * conj(left))| / sym_len, the same statistic on clean signals
-    but immune to those wraps.
-    """
-    if estimator == "coherent":
-        corr = (right * left.conj()).sum(-1)
-        return (torch.angle(corr) / cfg.sym_len).abs()
-    if estimator == "reference":
-        return (torch.angle(right / left).mean(-1) / cfg.sym_len).abs()
-    raise ValueError(f"unknown cfo_estimator {estimator!r}")
-
-
-def _phasor(angles: torch.Tensor) -> torch.Tensor:
-    """exp(-j * angles)."""
-    return torch.polar(torch.ones_like(angles), -angles)
-
-
-def _selected_bins(guard_bands: bool, cfg: FrameConfig):
-    """(bins, n_data, n_pilots): the DFT bins the tail reads, data first."""
-    if guard_bands:
-        nd = len(cfg.data_indices)
-        return (tuple(int(i) for i in cfg.data_indices)
-                + tuple(cfg.pilot_indices), nd, len(cfg.pilot_indices))
-    return tuple(range(cfg.n_fft)), cfg.n_fft, 0
-
-
-def _channel_estimate(tr_raw: torch.Tensor, f_delta: torch.Tensor,
-                      cfg: FrameConfig) -> torch.Tensor:
-    """h_k [R, n_fft] from the raw training chunks [R, n_training, n_fft]
-    (CP stripped), derotated here (a small tensor)."""
-    t0 = cfg.n_locking + cfg.n_preamble
-    rd, dev = f_delta.dtype, f_delta.device
-    tr_idx = ((torch.arange(cfg.n_training, dtype=rd, device=dev) + t0)
-              * cfg.sym_len)[:, None] \
-        + (torch.arange(cfg.n_fft, dtype=rd, device=dev) + cfg.cp_len)[None, :]
-    tr = tr_raw * _phasor(f_delta[:, None, None] * tr_idx)
-    training_ref = device_table(constants.training_signals,
-                                (cfg.n_fft, cfg.training_seed), tr.dtype, dev)
-    return (dft_matmul(tr) / training_ref).mean(-2)
-
-
 def _matrix_front(cp_re: torch.Tensor, cp_im: torch.Tensor, *,
                   guard_bands: bool, cfg: FrameConfig, cfo_estimator: str):
     """Matrix-derot front half on aligned planes [R, n_chunks, sym_len].
@@ -135,20 +87,15 @@ def _matrix_front(cp_re: torch.Tensor, cp_im: torch.Tensor, *,
     selected bins (CFO-derotated within each symbol, the per-chunk phase
     left to the tail), the channel estimate and the CFO estimate.
     """
-    last = cfg.n_locking + cfg.n_preamble - 1
-    f_delta = _cfo_estimate_lr(
-        torch.complex(cp_re[:, last - 1], cp_im[:, last - 1]),
-        torch.complex(cp_re[:, last], cp_im[:, last]), cfg, cfo_estimator)
-    t0 = cfg.n_locking + cfg.n_preamble
-    h_k = _channel_estimate(
-        torch.complex(cp_re[:, t0:t0 + cfg.n_training, cfg.cp_len:],
-                      cp_im[:, t0:t0 + cfg.n_training, cfg.cp_len:]),
-        f_delta, cfg)
-    sel, _, _ = _selected_bins(guard_bands, cfg)
-    yr, yi = dft_matmul_select_derot_planar(
-        cp_re[:, cfg.n_sync_chunks:, cfg.cp_len:],
-        cp_im[:, cfg.n_sync_chunks:, cfg.cp_len:],
-        sel, f_delta, sample_offset=cfg.cp_len)
+    left, right, train = front.estimate_chunks(cfg)
+    f_delta, h_k = front.estimates(
+        torch.complex(cp_re[:, left], cp_im[:, left]),
+        torch.complex(cp_re[:, right], cp_im[:, right]),
+        torch.complex(cp_re[:, train, cfg.cp_len:], cp_im[:, train, cfg.cp_len:]),
+        cfg=cfg, cfo_estimator=cfo_estimator)
+    yr, yi = front.derot_spectrum(cp_re[:, cfg.n_sync_chunks:],
+                                  cp_im[:, cfg.n_sync_chunks:], f_delta,
+                                  guard_bands=guard_bands, cfg=cfg)
     return yr, yi, h_k, f_delta
 
 
@@ -160,33 +107,24 @@ def _stream_front(chunks: torch.Tensor, *, guard_bands: bool,
     and the DFT at the selected bins read the rotated chunks.
 
     Returns (yr, yi, h_k, f_delta, rotated chunks)."""
-    last = cfg.n_locking + cfg.n_preamble - 1
-    f_delta = _cfo_estimate_lr(chunks[:, last - 1], chunks[:, last], cfg,
-                               cfo_estimator)
+    left, right, train = front.estimate_chunks(cfg)
+    f_delta = front.cfo_estimate(chunks[:, left], chunks[:, right], cfg,
+                                 cfo_estimator)
     rd, dev = f_delta.dtype, f_delta.device
-    rot_c = _phasor(f_delta[:, None]
-                    * (torch.arange(chunks.shape[1], dtype=rd, device=dev)
-                       * cfg.sym_len))
-    rot_j = _phasor(f_delta[:, None]
-                    * torch.arange(cfg.sym_len, dtype=rd, device=dev))
+    rot_c = front.phasor(f_delta[:, None]
+                         * (torch.arange(chunks.shape[1], dtype=rd, device=dev)
+                            * cfg.sym_len))
+    rot_j = front.phasor(f_delta[:, None]
+                         * torch.arange(cfg.sym_len, dtype=rd, device=dev))
     rotated = chunks * (rot_c[:, :, None] * rot_j[:, None, :])
-    t0 = cfg.n_locking + cfg.n_preamble
     training_ref = device_table(constants.training_signals,
                                 (cfg.n_fft, cfg.training_seed), chunks.dtype,
                                 dev)
-    h_k = (dft_matmul(rotated[:, t0:t0 + cfg.n_training, cfg.cp_len:])
-           / training_ref).mean(-2)
-    sel, _, _ = _selected_bins(guard_bands, cfg)
+    h_k = (dft_matmul(rotated[:, train, cfg.cp_len:]) / training_ref).mean(-2)
+    sel, _, _ = front.selected_bins(guard_bands, cfg)
     yr, yi = dft_matmul_select_planar(
         rotated[:, cfg.n_sync_chunks:, cfg.cp_len:], sel)
     return yr, yi, h_k, f_delta, rotated
-
-
-def _h_selected(h_k: torch.Tensor, guard_bands: bool, cfg: FrameConfig):
-    """(h_k at the selected bins, n_data, n_pilots)."""
-    sel, nd, n_pilots = _selected_bins(guard_bands, cfg)
-    return (h_k[:, device_table(np.asarray, (sel,), torch.long, h_k.device)],
-            nd, n_pilots)
 
 
 def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
@@ -195,7 +133,7 @@ def _tail(yr: torch.Tensor, yi: torch.Tensor, h_k: torch.Tensor,
     """``eq_demod_pack`` on the DFT planes, with h_k at the selected bins and
     ``phase`` the per-chunk CFO rate (f_delta, or zeros after stream derot)."""
     with profiler.span("rx.tail", yr):
-        h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
+        h_sel, nd, n_pilots = front.h_selected(h_k, guard_bands, cfg)
         return eq_demod_pack(yr, yi, h_sel, phase.contiguous(), n_data=nd,
                              n_pilots=n_pilots, modulation=modulation, cfg=cfg,
                              blocks=blocks)
@@ -242,12 +180,12 @@ def _decode_planes(planes: torch.Tensor, *, n_chunks: int, derot: str,
     if derot == "matrix":
         idx = torch.arange(sym, dtype=f_delta.dtype, device=f_delta.device) \
             + 6 * sym
-        post = pre * _phasor(f_delta[:, None] * idx)
+        post = pre * front.phasor(f_delta[:, None] * idx)
     else:
         post = rotated[:, 6]
     eq = None
     if equalized:
-        h_sel, nd, n_pilots = _h_selected(h_k, guard_bands, cfg)
+        h_sel, nd, n_pilots = front.h_selected(h_k, guard_bands, cfg)
         eq = equalized_symbols(yr, yi, h_sel, phase, n_data=nd,
                                n_pilots=n_pilots, cfg=cfg)
     return out, {"f_delta": f_delta, "h_k": h_k, "equalized": eq,
@@ -295,7 +233,7 @@ def decode_aligned(aligned: torch.Tensor, *, n_chunks: int,
     whole stream), "matrix" (the phasor folded into a per-row DFT matrix)
     or "auto" (= "matrix").  complex128 input is decoded in complex64.
     """
-    derot = _resolve_derot(derot_impl)
+    derot = front.resolve_derot(derot_impl)
     require_full_fp32(aligned.device)
     lead = aligned.shape[:-1]
     flat = aligned[..., :n_chunks * cfg.sym_len].to(torch.complex64).reshape(
@@ -337,38 +275,23 @@ def decode_chunked_matrix(chun, *, n_chunks: int, m_per: int,
     ci = ci.reshape(-1, *ci.shape[-2:])
     n_cls = cr.shape[1] // m_per
     sym = cfg.sym_len
-
-    def slot_of(c):
-        return (c % n_cls) * m_per + c // n_cls
-
-    last = cfg.n_locking + cfg.n_preamble - 1
-    t0 = cfg.n_locking + cfg.n_preamble
-    lanes = slice(cfg.cp_len, cfg.cp_len + cfg.n_fft)
+    left, right, train = front.estimate_chunks(cfg)
+    sl, sr = _slot_table(n_cls, m_per, left, right + 1).tolist()
     with profiler.span("rx.front", cr):
-        f_delta = _cfo_estimate_lr(
-            torch.complex(cr[:, slot_of(last - 1), :sym], ci[:, slot_of(last - 1), :sym]),
-            torch.complex(cr[:, slot_of(last), :sym], ci[:, slot_of(last), :sym]),
-            cfg, cfo_estimator)
-        train = device_table(_slot_table, (n_cls, m_per, t0, t0 + cfg.n_training),
-                             torch.long, cr.device)
-        h_k = _channel_estimate(torch.complex(cr[:, train, lanes], ci[:, train, lanes]),
-                                f_delta, cfg)
-        sel, _, _ = _selected_bins(guard_bands, cfg)
-        yr, yi = dft_matmul_select_derot_planar(cr[:, :, lanes], ci[:, :, lanes],
-                                                sel, f_delta,
-                                                sample_offset=cfg.cp_len)
+        tr = device_table(_slot_table, (n_cls, m_per, train.start, train.stop),
+                          torch.long, cr.device)
+        f_delta, h_k = front.estimates(
+            torch.complex(cr[:, sl, :sym], ci[:, sl, :sym]),
+            torch.complex(cr[:, sr, :sym], ci[:, sr, :sym]),
+            torch.complex(cr[:, tr, cfg.cp_len:sym], ci[:, tr, cfg.cp_len:sym]),
+            cfg=cfg, cfo_estimator=cfo_estimator)
+        yr, yi = front.derot_spectrum(cr, ci, f_delta,
+                                      guard_bands=guard_bands, cfg=cfg)
     blocks = device_table(_slot_table, (n_cls, m_per, cfg.n_sync_chunks,
                                         n_chunks), torch.int32, cr.device)
     out = _tail(yr, yi, h_k, f_delta, guard_bands=guard_bands,
                 modulation=modulation, cfg=cfg, blocks=blocks)
     return out.reshape(*lead, out.shape[-1])
-
-
-def _resolve_derot(derot_impl: str) -> str:
-    if derot_impl not in DEROT_IMPLS:
-        raise ValueError(f"unknown derot_impl {derot_impl!r}; expected one "
-                         f"of {DEROT_IMPLS}")
-    return "matrix" if derot_impl == "auto" else derot_impl
 
 
 def _resolve_route(align_impl: str, derot_impl: str, sync_dtype,
@@ -378,7 +301,7 @@ def _resolve_route(align_impl: str, derot_impl: str, sync_dtype,
     if align_impl not in ALIGN_IMPLS:
         raise ValueError(f"unknown align_impl {align_impl!r}; expected one "
                          f"of {ALIGN_IMPLS}")
-    derot = _resolve_derot(derot_impl)
+    derot = front.resolve_derot(derot_impl)
     check_sync_dtype(sync_dtype)
     if align_impl == "auto":
         short = len(locking_template(cfg)) <= MAX_TAPS
@@ -447,7 +370,7 @@ def _decode_batch(entry, x: torch.Tensor, flatten, *, n_blocks: int,
                      need=n_chunks * cfg.sym_len, cfg=cfg,
                      sync_dtype=sync_dtype, search_window=search_window)
 
-    def front(planes):
+    def front_half(planes):
         return _front(planes, n_chunks=n_chunks, derot=derot,
                       guard_bands=guard_bands, cfg=cfg,
                       cfo_estimator=cfo_estimator)[:4]
@@ -461,9 +384,9 @@ def _decode_batch(entry, x: torch.Tensor, flatten, *, n_blocks: int,
         selectors = (n_blocks, guard_bands, modulation, cfg, sync_dtype,
                      search_window, cfo_estimator, align_impl, derot_impl)
         yr, yi, h_k, phase = graphs.run(
-            entry, x, selectors, (("rx.sync", sync), ("rx.front", front)))
+            entry, x, selectors, (("rx.sync", sync), ("rx.front", front_half)))
     else:
-        yr, yi, h_k, phase = front(sync(x))
+        yr, yi, h_k, phase = front_half(sync(x))
     return _tail(yr, yi, h_k, phase, guard_bands=guard_bands,
                  modulation=modulation, cfg=cfg)
 
@@ -493,7 +416,7 @@ def decode_frame(samples: torch.Tensor, *, n_blocks: int,
     than the frame are zero-padded.  ``search_window`` bounds the sync scan
     to lags below ``search_window + sym_len`` (reacquisition near a known
     frame start); None scans the whole row, as the reference.
-    ``cfo_estimator`` defaults to "coherent" (see ``_cfo_estimate_lr``).
+    ``cfo_estimator`` defaults to "coherent" (see ``front.cfo_estimate``).
     complex128 input is decoded in complex64.  On CUDA, TF32 must be off
     (``ops.fft.require_full_fp32``).
 

@@ -28,6 +28,70 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "ofdm_tpu"), f"{path} imports {mod}"
 
 
+PORT = ROOT / "ofdm_tpu_torch"
+
+
+def _imports(tree: ast.AST, path: Path):
+    """(module, name, bound) per import: ``import a.b as c`` gives
+    (a.b, None, c), ``from a import b as c`` gives (a, b, c), a relative
+    module resolved against the file's package."""
+    package = path.relative_to(ROOT).parts[:-1]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, None, a.asname or a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            base = list(package[:len(package) + 1 - node.level]) \
+                if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            for a in node.names:
+                yield mod, a.name, a.asname or a.name
+
+
+def _ops_reaching_up():
+    up = tuple(f"ofdm_tpu_torch.{p}" for p in ("kernels", "phy", "parallel"))
+    found = []
+    for p in sorted((PORT / "ops").rglob("*.py")):
+        for mod, name, _ in _imports(ast.parse(p.read_text()), p):
+            full = f"{mod}.{name}" if name else mod
+            if any(m == u or m.startswith(u + ".") for m in (mod, full)
+                   for u in up):
+                found.append((str(p.relative_to(ROOT)), full))
+    return found
+
+
+def _private_front_uses():
+    """Underscore names of phy/rx.py or phy/front.py that a file outside
+    phy/ imports, or reads off a name bound to either module."""
+    hidden = ("ofdm_tpu_torch.phy.rx", "ofdm_tpu_torch.phy.front")
+    found = []
+    for p in sorted(PORT.rglob("*.py")):
+        if PORT / "phy" in p.parents:
+            continue
+        tree = ast.parse(p.read_text())
+        bound = set()
+        for mod, name, as_ in _imports(tree, p):
+            if mod in hidden and name and name.startswith("_"):
+                found.append((str(p.relative_to(ROOT)), f"{mod}.{name}"))
+            if (f"{mod}.{name}" if name else mod) in hidden:
+                bound.add(as_)
+        found += [(str(p.relative_to(ROOT)), f"{n.value.id}.{n.attr}")
+                  for n in ast.walk(tree)
+                  if isinstance(n, ast.Attribute) and n.attr.startswith("_")
+                  and isinstance(n.value, ast.Name) and n.value.id in bound]
+    return found
+
+
+@pytest.mark.parametrize("rule", [_ops_reaching_up, _private_front_uses],
+                         ids=["ops-below-kernels-phy-parallel",
+                              "no-private-rx-or-front-outside-phy"])
+def test_layering(rule):
+    """The arrows between the port's layers point one way: ``ops/`` is
+    below the kernels, the decoders and ``parallel/``; the front half's
+    and the decoders' private helpers stay inside ``phy/``."""
+    assert rule() == []
+
+
 ROUND_TRIP = """
 import sys
 sys.modules["jax"] = None          # any attempt to import jax now fails

@@ -34,9 +34,11 @@ from ofdm_tpu_torch.kernels.align import (key_lag, key_power, pack_keys,
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
-from ofdm_tpu_torch.kernels.derot import derot_dft, kernel_bins, kernel_twiddle
-from ofdm_tpu_torch.ops.fft import (dft_matmul_select_derot_planar,
-                                    dft_matmul_select_derot_planar_reference,
+from ofdm_tpu_torch.kernels import counters
+from ofdm_tpu_torch.kernels.derot import (derot_dft,
+                                          dft_matmul_select_derot_planar,
+                                          kernel_bins, kernel_twiddle)
+from ofdm_tpu_torch.ops.fft import (dft_matmul_select_derot_planar_reference,
                                     set_full_fp32)
 from ofdm_tpu_torch.phy.modulation import BITS_PER_SYMBOL, modulate_bytes_packed
 
@@ -403,6 +405,18 @@ def _keys_case(name):
 
 
 KEY_CASES = ["real", "complex", *K1_EDGES]
+
+
+def test_counters_name_every_hand_kernel():
+    """``kernels.counters()`` is the one list of launch counters: the seven
+    wrappers of the package's public kernel modules, each by its name."""
+    found = counters()
+    assert set(found) == {"sync_align", "planar_align", "sync_keys",
+                          "pin_rowmajor", "sync_align_chunked",
+                          "eq_demod_pack", "derot_dft"}
+    assert all(fn.__name__ == name and type(fn.launches) is int
+               for name, fn in found.items())
+    assert found["sync_align"] is sync_align and found["derot_dft"] is derot_dft
 
 
 @pytest.mark.parametrize("name", KEY_CASES)
