@@ -14,7 +14,14 @@ source, all at once), and runs eighteen phases:
      complex template, and the correlation pass's edges: 1 and 128 taps
      (real and complex), a scan that ends 3 lags into a block, a row
      shorter than one block, exact ties between a scan's first and last
-     lags.  Windows and offsets must be identical;
+     lags; the batch cell's 2,048 rows and exact ties across the edges
+     between the one-pass kernel's CTAs.  Each case prints which path
+     ``sync_align`` took (one pass or two kernels, by ``one_pass_cluster``),
+     and every case whose shape fits also runs ``sync_align_one_pass``.
+     Windows and offsets must be identical.  Then the two kernels against
+     the one pass, device time by CUDA graph replay beside the bytes bound,
+     at the batch cell's rows, the 256-row headline and serving's 780 rows
+     with search window 80;
   3. eq_demod_pack (K2) against its plain version: headline shape QAM64 with
      a CFO phase, QPSK, BPSK without guard bands, QAM16 and QAM256, each
      also through a block table (the chunked route's slot order), and
@@ -227,11 +234,14 @@ from ofdm_tpu_torch.io import capture as capture_mod  # noqa: E402
 from ofdm_tpu_torch.io import iqfile, serving  # noqa: E402
 from ofdm_tpu_torch.io.feed import SampleFeed, double_buffered  # noqa: E402
 from ofdm_tpu_torch.kernels import _build, counters  # noqa: E402
+from ofdm_tpu_torch.kernels import align  # noqa: E402
 from ofdm_tpu_torch.kernels.align import (key_lag, key_power,  # noqa: E402
-                                          pin_rowmajor, pin_rowmajor_reference,
-                                          planar_align, planar_align_reference,
-                                          sync_align, sync_align_reference,
-                                          sync_keys, sync_keys_reference)
+                                          one_pass_cluster, pin_rowmajor,
+                                          pin_rowmajor_reference, planar_align,
+                                          planar_align_reference, sync_align,
+                                          sync_align_one_pass,
+                                          sync_align_reference, sync_keys,
+                                          sync_keys_reference)
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,  # noqa: E402
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference  # noqa: E402
@@ -343,6 +353,17 @@ def launches(**want) -> dict:
     return {name: want.get(name, 0) for name in counters()}
 
 
+def k1_calls(n: int, rows: int, t: int, need: int,
+       search_window: int | None = None) -> dict:
+    """The counts of ``n`` K1 calls on ``rows`` rows of T samples (padded
+    to ``need``) with the locking template's 80 taps: ``sync_align`` n and,
+    where ``one_pass_cluster`` takes the shape, ``sync_align_one_pass`` n."""
+    t = max(t, need)
+    lag_bound = t if search_window is None else min(t, search_window + 80)
+    one = one_pass_cluster(rows, t, need, lag_bound, 80) is not None
+    return {"sync_align": n, "sync_align_one_pass": n if one else 0}
+
+
 def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     """Zero-pad the rows of [R, T] to at least n samples."""
     return torch.cat([x, x.new_zeros((x.shape[0], max(0, n - x.shape[1])))], 1)
@@ -357,6 +378,49 @@ def synth_sync(gen, dev, rows, t, delays, template, scale=1.0):
     for i, d in enumerate(delays):
         s[i, d:d + tpl.shape[0]] += scale * tpl
     return s
+
+
+def edge_tie_rows(dev, tpl, t, rows):
+    """``rows`` integer rows of T = 19,120 whose two copies of ``tpl``, 80 or
+    more lags apart, tie exactly, the lower lag on one side of an edge
+    between the one-pass kernel's CTAs (lags 4,784, 9,568 and 14,352 at 4
+    CTAs a row) and the higher on the other, or both in one CTA's halo; a
+    sixth of the rows all zeros (every lag ties).  Returns (rows, the lag
+    each row must resolve to)."""
+    pairs = [(4704, 4784), (4744, 4824), (4784, 9568), (9500, 14352),
+             (0, t - len(tpl)), ()]
+    w = torch.as_tensor(tpl, dtype=torch.complex64, device=dev)
+    s = torch.zeros((rows, t), dtype=torch.complex64, device=dev)
+    for row in range(rows):
+        for lag in pairs[row % len(pairs)]:
+            s[row, lag:lag + len(tpl)] += w
+    return s, [(pairs[row % len(pairs)] or (0,))[0] for row in range(rows)]
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: ``n`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's
+    enqueue is not in the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(g, stream=side):
+        for _ in range(n):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def tie_rows(dev, tpl, t, lag_bound):
@@ -432,24 +496,84 @@ def phase_sync_align(gen, dev, template):
         ties, first = tie_rows(dev, tpl_t, 5000, 2051)
         cases.append((f"exact ties, {kind} template", ties, tpl_t, 1000, 1971,
                       first))
+    # the batch cell's rows (2,048 x 19,120, 4 CTAs a row), and exact ties
+    # across the edges between those CTAs (a generator of their own, so the
+    # later phases' inputs stay as they were)
+    cgen = torch.Generator(dev).manual_seed(SEED + 2)
+    t_cell = 19120
+    dc = torch.randint(0, 200, (8 * BATCH,), generator=cgen, device=dev).tolist()
+    cell = synth_sync(cgen, dev, 8 * BATCH, t_cell, dc, template)
+    cases.append(("batch cell", cell, template, need, None, dc))
+    for kind, tpl_t in (("real", tpl_int), ("complex", tpl_int_c)):
+        ties, first = edge_tie_rows(dev, tpl_t, t_cell, 144)
+        cases.append((f"exact ties across CTA edges, {kind} template", ties,
+                      tpl_t, need, None, first))
     worst = 0.0
     for name, x, tpl, nd, win, dl in cases:
         t_x = x.shape[-1]
+        lag_bound = t_x if win is None else min(t_x, win + len(tpl))
+        cluster = one_pass_cluster(x.shape[0], t_x, nd, lag_bound, len(tpl))
+        fits = align._fitting_cluster(t_x, nd, lag_bound, len(tpl))
         want_raw = torch.as_tensor(dl, device=dev, dtype=torch.int32) - 1
         for planar in (False, True):
+            before = sync_align_one_pass.launches
             got, raw = sync_align(x, tpl, nd, search_window=win, planar=planar)
+            check(sync_align_one_pass.launches - before == (cluster is not None),
+                  f"sync_align {name}: took the wrong path")
             ref, raw_ref = sync_align_reference(x, tpl, nd, search_window=win,
                                                 planar=planar)
+            outs = [(got, raw)]
+            if fits is not None:          # the one-pass kernel wherever it fits
+                outs.append(sync_align_one_pass(x, tpl, nd, search_window=win,
+                                                planar=planar))
             torch.cuda.synchronize()
-            check(torch.equal(raw, raw_ref), f"sync_align {name}: offsets differ")
-            check(torch.equal(raw, want_raw), f"sync_align {name}: wrong peak")
-            diff = (got - ref).abs().max().item()
-            worst = max(worst, diff)
-            check(diff == 0.0, f"sync_align {name} planar={planar}: window "
-                  f"differs by {diff}")
+            for w, r in outs:
+                check(torch.equal(r, raw_ref), f"sync_align {name}: offsets differ")
+                check(torch.equal(r, want_raw), f"sync_align {name}: wrong peak")
+                diff = (w - ref).abs().max().item()
+                worst = max(worst, diff)
+                check(diff == 0.0, f"sync_align {name} planar={planar}: window "
+                      f"differs by {diff}")
+        path = f"one pass, {cluster} CTA(s) a row" if cluster else "two kernels"
+        if cluster is None and fits is not None:
+            path += f" (sync_align_one_pass at {fits} CTA(s) a row identical too)"
         print(f"phase 2 sync_align {name}: rows={x.shape[0]} T={t_x} need={nd} "
-              f"K={len(tpl)} search_window={win}: windows and offsets identical")
+              f"K={len(tpl)} search_window={win}: {path}; windows and offsets "
+              "identical")
+    k1_timing(cgen, dev, template, cell, need)
     return worst
+
+
+def k1_timing(gen, dev, template, cell: torch.Tensor, need: int) -> None:
+    """K1's two kernels against its one pass, device time a call (CUDA
+    graph replay), each beside the bytes bound: the batch cell's rows,
+    the bench's 256-row headline and serving's 780 rows with search window
+    80, complex in and planar out, or planes in and out."""
+    stpl = constants.locking_for(serving.CFG)
+    flen, sw = serving.FLEN, serving.CFG.sym_len
+    srv = synth_sync(gen, dev, serving.N_FRAMES, flen, torch.randint(
+        0, 160, (serving.N_FRAMES,), generator=gen, device=dev).tolist(), stpl)
+    srv = torch.stack([srv.real, srv.imag], dim=1).contiguous()
+    for label, x, tpl, nd, win in (
+            (f"batch cell [{cell.shape[0]}, {cell.shape[1]}]", cell, template,
+             need, None),
+            (f"headline [{BATCH}, {cell.shape[1]}]", cell[:BATCH].contiguous(),
+             template, need, None),
+            (f"serving [{srv.shape[0]}, 2, {flen}], search window {sw}", srv,
+             stpl, flen, sw)):
+        r, t = x.shape[0], x.shape[-1]
+        lag_bound = t if win is None else min(t, win + len(tpl))
+        b_ms, b_by = bound(0, r * t * 8 + len(tpl) * 8 + r * nd * 8 + r * 4)
+        two = graph_ms(lambda: align._two_pass(x, tpl, nd, lag_bound, True))
+        one = graph_ms(lambda: sync_align_one_pass(x, tpl, nd, search_window=win,
+                                                   planar=True))
+        cluster = one_pass_cluster(r, t, nd, lag_bound, len(tpl))
+        print(f"phase 2 sync_align timing {label}: two kernels {two:.4f} ms "
+              f"({100 * b_ms / two:.1f}% of the bound), one pass "
+              f"({align._fitting_cluster(t, nd, lag_bound, len(tpl))} CTA(s) a "
+              f"row) {one:.4f} ms ({100 * b_ms / one:.1f}%), bound {b_ms:.4f} "
+              f"ms ({b_by}); sync_align takes "
+              f"{'one pass' if cluster else 'two kernels'}")
 
 
 def synth_tail(gen, dev, mod, guard_bands, snr=SNR):
@@ -659,7 +783,8 @@ def phase_derot_dft(dev) -> dict:
     kw = dict(n_blocks=nb, guard_bands=True, modulation=MOD)
     (out_clean, out_cfo), n = counted(lambda: (ott.decode_frame(rx_clean, **kw),
                                                ott.decode_frame(rx_cfo, **kw)))
-    check(n == launches(sync_align=2, derot_dft=2, eq_demod_pack=2),
+    check(n == launches(**k1_calls(2, rows, frame, need), derot_dft=2,
+                        eq_demod_pack=2),
           f"decode_frame x2 at {rows} rows launched {n}")
     gates(out_clean, data, f"decode_frame at {rows} rows", cfo=False)
     good = gates(out_cfo, data, f"decode_frame at {rows} rows", cfo=True)
@@ -857,7 +982,9 @@ def phase_streaming(gen, dev, name_limit: str) -> dict:
     kw = dict(n_frames=HAM_FRAMES, spacing=flen, payload_len=plen,
               guard_bands=True, modulation=MOD, fec="hamming", data_len=HAM_BYTES)
     presync = launches(planar_align=1, derot_dft=1, eq_demod_pack=1)
-    resync = launches(planar_align=1, sync_align=1, derot_dft=1, eq_demod_pack=1)
+    resync = launches(planar_align=1,
+                      **k1_calls(1, HAM_FRAMES, flen, flen, cfg.sym_len),
+                      derot_dft=1, eq_demod_pack=1)
     routes = [("complex presync", s, dict(resync=False), presync),
               ("complex resync", s, dict(resync=True), resync)]
     routes += [(f"planar presync, handoff {h}", planes,
@@ -1003,7 +1130,8 @@ def phase_serving(dev, name_limit: str, n_frames: int) -> None:
     flen = serving.FLEN
     n_buf = SRV_DISTINCT * SRV_ROUNDS
     order = [i % SRV_DISTINCT for i in range(n_buf)]
-    per_step = launches(planar_align=1, sync_align=1, derot_dft=1,
+    k1_step = k1_calls(1, n_frames, flen, flen, serving.CFG.sym_len)
+    per_step = launches(planar_align=1, **k1_step, derot_dft=1,
                         eq_demod_pack=1)
 
     # one serve step: its launches, no synchronizing call before the fetch
@@ -1103,7 +1231,8 @@ def phase_serving(dev, name_limit: str, n_frames: int) -> None:
         for label, fn in modes.items():
             fn()                                      # warm-up, checked too
             res, n = counted(fn)
-            want = launches(planar_align=n_buf, sync_align=n_buf,
+            want = launches(planar_align=n_buf,
+                            **{k: v * n_buf for k, v in k1_step.items()},
                             derot_dft=n_buf, eq_demod_pack=n_buf)
             check(n == want, f"serving {label} launched {n}, want {want}")
             results[label] = res
@@ -1316,7 +1445,6 @@ def phase_captures(dev, n_plain_decode: dict) -> None:
     t_phase = time.perf_counter()
     cfg = ott.DEFAULT_CONFIG
     template = constants.locking_for(cfg)
-    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
     # decode derotates the stream itself, so it never launches the derot DFT
     check(n_plain_decode == launches(sync_align=1, eq_demod_pack=1),
           f"phase 4's decode launched {n_plain_decode}")
@@ -1330,6 +1458,9 @@ def phase_captures(dev, n_plain_decode: dict) -> None:
                               (f"tiled to {reps * x.shape[0]} rows",
                                x.repeat(reps, 1), want.repeat(reps, 1))):
             out, n = counted(lambda: ott.decode_frame(xx, **kw))
+            need = (cfg.n_sync_chunks + nb) * cfg.sym_len
+            one_each = launches(**k1_calls(1, *xx.shape, need), derot_dft=1,
+                                eq_demod_pack=1)
             check(n == one_each, f"{name} {label}: launched {n}")
             bad = int((out != ww).any(dim=1).sum())
             check(torch.equal(out, ww), f"{name} {label}: {bad} of {ww.shape[0]} "
@@ -1401,7 +1532,14 @@ def phase_apps(dev, name_limit: str) -> None:
     module docstring)."""
     t_phase = time.perf_counter()
     cuda = ["--device", "cuda"]
-    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
+
+    def one_each(mod) -> dict:
+        """One decode_frame of BATCH rows of PAYLOAD bytes: K1, the derot
+        DFT and K2 once each."""
+        need = ott.DEFAULT_CONFIG.sync_len + ott.n_data_blocks(
+            PAYLOAD, mod, True) * 80
+        return launches(**k1_calls(1, BATCH, need + 80, need), derot_dft=1,
+                        eq_demod_pack=1)
 
     # ber_sweep.measure_ber at the headline width
     print(f"phase 14 ber_sweep.measure_ber on {name_limit}: {BATCH} x {PAYLOAD} B, "
@@ -1418,7 +1556,8 @@ def phase_apps(dev, name_limit: str) -> None:
             t0 = time.perf_counter()
             ber, n = counted(point)
             secs.append(time.perf_counter() - t0)
-            check(n == one_each, f"measure_ber {mod.value} @ {snr} launched {n}")
+            check(n == one_each(mod),
+                  f"measure_ber {mod.value} @ {snr} launched {n}")
             bers.append(ber)
         check(bers[0] == 0.0, f"{mod.value}: BER {bers[0]} at SNR {snr_op}")
         check(bers[1] > 0.0, f"{mod.value}: BER {bers[1]} at SNR 5")
@@ -1529,7 +1668,7 @@ def phase_apps(dev, name_limit: str) -> None:
                           row_len)
             kw = dict(n_blocks=nb, guard_bands=True, modulation=mod)
             out, n = counted(lambda: ott.decode_frame(rx, **kw))
-            check(n == one_each, f"decode_frame {mod.value} launched {n}")
+            check(n == one_each(mod), f"decode_frame {mod.value} launched {n}")
             check(tuple(rx.shape) == (BATCH, row_len), f"{mod.value} rows {rx.shape}")
             gates(out, data, f"decode_frame {mod.value}", cfo=False)
             dec_ms = time_ms(lambda: ott.decode_frame(rx, **kw))
@@ -1550,9 +1689,12 @@ def phase_apps(dev, name_limit: str) -> None:
         trace = Path(tmp) / profiler.TRACE_NAME
         events = json.loads(trace.read_text())["traceEvents"]
         names = [e.get("name", "") for e in events]
+        # K1 at the headline shape is one kernel (one pass) or two
+        k1_kernels = ("sync_window_kernel",) \
+            if k1_calls(1, *rx.shape, rx.shape[1] - 80)["sync_align_one_pass"] \
+            else ("corr_argmax_kernel", "window_kernel")
         seen = {kernel: sum(kernel in n for n in names)
-                for kernel in ("corr_argmax_kernel", "window_kernel",
-                               "eq_demod_pack_kernel")}
+                for kernel in (*k1_kernels, "eq_demod_pack_kernel")}
         check(all(seen.values()) and "decode_frame steps" in names,
               f"the chrome trace names the kernels {seen} times; its events by "
               f"category: { {c: sum(e.get('cat') == c for e in events) for c in {e.get('cat') for e in events}} }")
@@ -1671,7 +1813,9 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     rx_clean, rx_cfo, data = head["rx_clean"], head["rx_cfo"], head["data"]
     kw = dict(n_blocks=head["nb"], guard_bands=True, modulation=MOD)
     want = {"clean": head["out_clean"], "CFO": head["out_cfo"]}
-    one_each = launches(sync_align=1, derot_dft=1, eq_demod_pack=1)
+    k1_head = k1_calls(1, *rx_clean.shape,
+                       (cfg.n_sync_chunks + head["nb"]) * cfg.sym_len)
+    one_each = launches(**k1_head, derot_dft=1, eq_demod_pack=1)
 
     # the data-sharded batch decoders: decode_frame's bytes, its launches
     for name, x in (("clean", rx_clean), ("CFO", rx_cfo)):
@@ -1684,7 +1828,7 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     for label, planes, extra, n_want in (
             ("contiguous planes", head["planes_in"], {}, one_each),
             ("strided view", head["view"], {},
-             launches(pin_rowmajor=1, sync_align=1, derot_dft=1,
+             launches(pin_rowmajor=1, **k1_head, derot_dft=1,
                       eq_demod_pack=1)),
             ("chunked", head["planes_in"], dict(align_impl="chunked"),
              launches(sync_align_chunked=1, derot_dft=1, eq_demod_pack=1))):
@@ -1750,8 +1894,10 @@ def phase_parallel(dev, name_limit: str, head: dict, streams: dict) -> dict:
     # stream decoding at config 4 and the burst stream of phase 10
     s, rkw = streams["stream"], dict(streams["kw"])
     reg, n_reg = counted(lambda: decode_regular_sharded(s, mesh, **rkw))
-    check(n_reg == launches(planar_align=1, sync_align=1, derot_dft=1,
-                            eq_demod_pack=1),
+    check(n_reg == launches(planar_align=1,
+                            **k1_calls(1, rkw["n_frames"], rkw["spacing"],
+                                       rkw["spacing"], cfg.sym_len),
+                            derot_dft=1, eq_demod_pack=1),
           f"decode_regular_sharded launched {n_reg}")
     single = ott.decode_regular(s, **rkw, resync=True)
     check(np.array_equal(reg[0], single[0]) and np.array_equal(
@@ -1899,7 +2045,13 @@ def check_bench(line: dict, name_limit: str, seed: int, full: bool) -> None:
                                    else []), f"bench configs {sorted(d['configs'])}")
     for path in BENCH_GATES + (BENCH_CONFIG_GATES if full else ()):
         check(_at(d, path) == 0, f"bench gate {'.'.join(path)} = {_at(d, path)}")
-    k1_k2 = {"sync_align": 1, "derot_dft": 1, "eq_demod_pack": 1}
+    def nonzero(counts: dict) -> dict:       # the line lists launched kernels
+        return {k: v for k, v in counts.items() if v}
+
+    head_need = ott.DEFAULT_CONFIG.sync_len + ott.n_data_blocks(
+        PAYLOAD, MOD, True) * 80
+    k1_k2 = nonzero(k1_calls(1, BATCH, head_need + 80, head_need)) | {
+        "derot_dft": 1, "eq_demod_pack": 1}
     want = {("launches",): k1_k2, ("planar_input", "launches"): k1_k2}
     timers = [("ms_per_step",), ("planar_input", "ms_per_step")]
     if full:
@@ -1908,7 +2060,10 @@ def check_bench(line: dict, name_limit: str, seed: int, full: bool) -> None:
         k3_k2 = {"planar_align": 1, "derot_dft": 1, "eq_demod_pack": 1}
         want |= {(*ham, "launches"): k3_k2,
                  (*ham, "planar_input", "launches"): k3_k2}
-        want |= {(*srv, mode, "launches"): dict(k1_k2, planar_align=1)
+        k1_srv = nonzero(k1_calls(1, BENCH_SRV_FRAMES, serving.FLEN,
+                                  serving.FLEN, serving.CFG.sym_len))
+        want |= {(*srv, mode, "launches"): k1_srv | {
+                     "planar_align": 1, "derot_dft": 1, "eq_demod_pack": 1}
                  for mode in ("d2h", "device_resident", "planar")}
         timers += [(*ham, "ms_per_step"), (*ham, "planar_input", "ms_per_step"),
                    (*srv, "d2h", "latency_ms"),
@@ -2097,7 +2252,8 @@ def main() -> None:
     # the main path alone between zeroing and reading the counters
     (out_clean, out_cfo), n_default = counted(
         lambda: (ott.decode_frame(rx_clean, **kw), ott.decode_frame(rx_cfo, **kw)))
-    check(n_default == launches(sync_align=2, derot_dft=2, eq_demod_pack=2),
+    check(n_default == launches(**k1_calls(2, BATCH, frame, frame - 80),
+                                derot_dft=2, eq_demod_pack=2),
           f"decode_frame x2 launched {n_default}, want 2 each of K1, the "
           "derot DFT and K2")
     check(tuple(out_clean.shape) == (BATCH, nb * 36),
@@ -2109,7 +2265,8 @@ def main() -> None:
           f"{good}/{BATCH}; launches {n_default}")
 
     out_planar, n_planar = counted(lambda: ott.decode_frame_planar(planes_in, **kw))
-    check(n_planar == launches(sync_align=1, derot_dft=1, eq_demod_pack=1),
+    check(n_planar == launches(**k1_calls(1, BATCH, frame, frame - 80),
+                               derot_dft=1, eq_demod_pack=1),
           f"decode_frame_planar launched {n_planar}")
     check(torch.equal(out_planar, out_clean), "decode_frame_planar differs")
     payload0, n_decode = counted(
@@ -2280,8 +2437,9 @@ def main() -> None:
           f"chunked equal, launches {n_chp}")
 
     out_view, n_view = counted(lambda: ott.decode_frame_planar(view, **kw))
-    check(n_view == launches(pin_rowmajor=1, sync_align=1, derot_dft=1,
-                             eq_demod_pack=1),
+    check(n_view == launches(pin_rowmajor=1,
+                             **k1_calls(1, BATCH, frame, frame - 80),
+                             derot_dft=1, eq_demod_pack=1),
           f"decode_frame_planar on the strided view launched {n_view}")
     check(torch.equal(out_view, out_clean), "strided planar view differs")
     routes["decode_frame_planar, strided view (K5 + K1 + K2)"] = (

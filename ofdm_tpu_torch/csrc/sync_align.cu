@@ -4,7 +4,9 @@
 // window copy):
 //
 //   ofdm_sync_align          K1, replaces ofdm_tpu/kernels/align_pallas.py::
-//                            sync_align (_sync_align_kernel, _take_window)
+//                            sync_align (_sync_align_kernel, _take_window),
+//                            in two kernels; ofdm_sync_align_one_pass is the
+//                            same function in one kernel, for rows that fit
 //   ofdm_planar_align        K3, replaces align_pallas.py::planar_align
 //                            (_kernel): the window copy at given offsets
 //   ofdm_sync_align_chunked  K4, replaces ofdm_tpu/kernels/chain_pallas.py::
@@ -32,17 +34,24 @@
 // lane rolls, a TPU trick: here every output lane is read straight from the
 // stream by index arithmetic.
 //
-// What bounds them on the H100, at the decode path's shape (R = 256 rows,
-// T = 19,120 samples, need = 19,040, K = 80, real template):
-//   - bytes: the stream is read once (~39 MB) and the window written once
-//     (~39 MB): ~23 us at 3.35 TB/s.  K3 is this copy alone.  K4 writes
-//     256 slots x 128 lanes x 2 planes (~67 MB), ~32 us with its read.
-//   - FLOPs: ~1.6 GFLOP of fp32 correlation (R * T * K * 2 planes * 2):
-//     ~24 us at the 67 TFLOP/s fp32 peak.  The tensor cores are not used:
+// What bounds K1 on the H100, at the batch benchmark's shape (R = 2,048
+// rows, T = 19,120 samples, need = 19,040, K = 80, real template): two
+// bounds, almost equal.
+//   - bytes: the rows read once (313 MB) and the window written once
+//     (312 MB): 625 MB, 0.187 ms at 3.35 TB/s.  K3 is this copy alone.
+//     K4 writes 256 slots x 128 lanes x 2 planes a row.
+//   - FLOPs: 12.5 GFLOP of fp32 correlation (R * T * K * 2 planes * 2):
+//     0.187 ms at the 67 TFLOP/s fp32 peak.  The tensor cores are not used:
 //     fp32 must not fall to TF32 (the QAM256 margin needs full fp32 sync),
 //     and a 3xTF32 split would change the sum order and so the powers.
 //   - an SM issues one shared-memory load per clock against four FMAs, so
 //     a loop with a load per tap and lag is load-bound at ~6x the FMA time.
+// Two kernels (a correlation pass, then a window pass that reads every row
+// again) serialise the two bounds and move 938 MB where 625 MB would do.
+// The one-pass kernel reads each row once and overlaps them: a row's staged
+// samples feed both its correlation and its window, and with two or more
+// CTAs resident on an SM, one CTA's loads and window stores run under
+// another's FMAs.
 //
 // Design:
 //   kernel 1 (corr_argmax): grid (rows, lag blocks).  A block stages
@@ -68,6 +77,29 @@
 //   kernel 2 (window, K1; chunk, K4): grid (rows, copy blocks).  Each block
 //     reduces its row's keys (a second pass instead of atomics:
 //     deterministic, no memset), derives the offset and copies its share.
+//   one pass (sync_window, K1 for rows that fit): one thread-block cluster
+//     of C CTAs a row.  With P = max(lag_bound, need) / C rounded up to 8
+//     and H = max(K, max_off), CTA c owns the lags and the window outputs
+//     [c P, (c + 1) P) and stages samples [c P, (c + 1) P + H) of both
+//     planes (0 past T) in the padded layout above, in chunks of one round
+//     of lags, by cp.async: the taps of a round start once its chunk and
+//     the next have landed, while later chunks are in flight.  The
+//     correlation is kernel 1's loop (tap_group), so every power and key is
+//     bitwise kernel 1's.  Each CTA reduces its best key, publishes it in
+//     its shared memory, and after a cluster barrier every CTA takes the max
+//     of the C keys through distributed shared memory: the integer max of
+//     kernel 2, deterministic, no atomics.  CTA c then writes its outputs
+//     from its staged samples off + i (the halo covers off <= max_off; 0
+//     past T, as staged), as float4 stores where the output allows.  The
+//     rows that fit are those whose staged share leaves room for two CTAs an
+//     SM and whose grid fills the card (kernels/align.py::one_pass_cluster
+//     decides); longer rows, and too few rows, take the two kernels.
+//     (Measured on the H100 at the batch benchmark's shape: 256 threads, 4
+//     CTAs a row and two chunks ahead were the fastest of 128-512 threads,
+//     2-8 CTAs a row and 1-8 chunks ahead, 0.404-0.411 ms a call against
+//     0.576-0.591 for the two kernels; unrolling the tap loop across groups
+//     was slower.  Without its window stores the kernel takes 0.382 ms, so
+//     the multiply-adds bound it, as they bound kernel 1.)
 //   K3 is kernel 2's copy with the offset read from an int32 array, and
 //     zeros where a row reads at or past T.  The batched decode's callers
 //     clip its offsets to [0, T - need]; stream decoding gives it one
@@ -81,7 +113,10 @@
 // floats, so complex64 [R, T] (interleaved) and planar f32 [R, 2, T] share
 // one code path, and the window can be written as either form.
 
+#include <climits>
 #include <cstdint>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -328,6 +363,255 @@ window_kernel(const float* __restrict__ in, long long row_stride,
               out_plane, out_elem, need);
 }
 
+// ---- K1 in one pass (sync_window_kernel) ----
+
+namespace cg = cooperative_groups;
+
+constexpr int kOneThreads = 256;
+// lags a round (one group of L lags a thread), and the samples a staged chunk
+constexpr int kOneRound = kOneThreads * kLagsPerThread;
+// chunks staged before the first round; each round stages one more (a round
+// reads its own chunk and the next)
+constexpr int kOneAhead = 2;
+constexpr int kOneMaxCluster = 8;                  // the portable cluster size
+// dynamic shared memory a CTA may take: two CTAs an SM (228 KB) with room
+// for their static shared memory
+constexpr int kOneMaxShared = 116736;
+
+// where sample n of a staged share sits in its padded plane
+__host__ __device__ __forceinline__ int padded_index(int n) {
+  return n + n / kLagsPerThread;
+}
+
+// A CTA's share P of a row's lags and window outputs.
+__host__ __device__ __forceinline__ int one_pass_share(int lag_bound, int need,
+                                                       int cluster) {
+  const int share = ((lag_bound > need ? lag_bound : need) + cluster - 1) / cluster;
+  return (share + kLagsPerThread - 1) / kLagsPerThread * kLagsPerThread;
+}
+
+// Floats of one padded plane of a CTA's staged samples: its share and the
+// halo H = max(K, max_off) (K: the taps of its last lags and the window of
+// a next tap group that tap_group preloads; max_off: its last output's).
+__host__ __device__ __forceinline__ int one_pass_plane(int share, int k,
+                                                       int max_off) {
+  const int n = share + (k > max_off ? k : max_off);
+  return (padded_index(n) + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             int src_bytes) {
+  // src_bytes 0 fills the float with 0
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One CTA of a row's cluster: grid (rows * cluster), cluster (cluster),
+// `share` = one_pass_share(...), dynamic shared memory two padded planes of
+// one_pass_plane(share, k, max_off) floats.
+template <bool kRealTemplate>
+__global__ void __launch_bounds__(kOneThreads)
+sync_window_kernel(const float* __restrict__ in, long long row_stride,
+                   long long plane_stride, long long elem_stride, int t,
+                   const float2* __restrict__ tpl, int k, int lag_bound,
+                   int need, int max_off, int share, int* __restrict__ raw_off,
+                   float* __restrict__ out, long long out_row,
+                   long long out_plane, long long out_elem) {
+  constexpr int L = kLagsPerThread;
+  extern __shared__ float4 s_dyn[];
+  __shared__ float4 s_wr[kTapSlots / 4];
+  __shared__ float4 s_wi[kTapSlots / 4];
+  __shared__ unsigned long long s_warp[kOneThreads / 32];
+  __shared__ unsigned long long s_key;
+  __shared__ int s_off;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int n_cta = static_cast<int>(cluster.dim_blocks().x);
+  const long long r = blockIdx.x / n_cta;
+  const int base = c * share;                   // this CTA's first lag and output
+  const float* row = in + r * row_stride;
+  float* s_re = reinterpret_cast<float*>(s_dyn);
+  float* s_im = s_re + one_pass_plane(share, k, max_off);
+
+  // the lags and outputs this CTA owns, and the samples they read
+  const int n_lags = max(0, min(share, lag_bound - base));
+  const int n_out = max(0, min(share, need - base));
+  const int n_stage = max(n_lags > 0 ? (n_lags + L - 1) / L * L + k : 0,
+                          n_out > 0 ? n_out + max_off : 0);
+  const int n_chunks = (n_stage + kOneRound - 1) / kOneRound;
+  const int rounds = (n_lags + kOneRound - 1) / kOneRound;
+
+  // chunk ch: local samples [ch kOneRound, (ch + 1) kOneRound), one commit
+  // group (empty past the last chunk, so the group count stays uniform)
+  auto stage = [&](int ch) {
+    const int end = min(n_stage, (ch + 1) * kOneRound);
+    for (int n = ch * kOneRound + static_cast<int>(threadIdx.x); n < end;
+         n += kOneThreads) {
+      const long long s = static_cast<long long>(base) + n;
+      const bool inside = s < t;
+      const float* p = row + (inside ? s : 0) * elem_stride;
+      const int bytes = inside ? 4 : 0;
+      cp_async_f32(s_re + padded_index(n), p, bytes);
+      cp_async_f32(s_im + padded_index(n), p + plane_stride, bytes);
+    }
+    cp_async_commit();
+  };
+  for (int ch = 0; ch < kOneAhead; ++ch) stage(ch);
+
+  // taps past K are zero and never used (tap_group's n stops at K)
+  float* wr = reinterpret_cast<float*>(s_wr);
+  float* wi = reinterpret_cast<float*>(s_wi);
+  for (int j = threadIdx.x; j < kTapSlots; j += kOneThreads) {
+    const float2 w = j < k ? tpl[j] : make_float2(0.f, 0.f);
+    wr[j] = w.x;
+    wi[j] = w.y;
+  }
+
+  // round rho: each thread one group of L lags, kernel 1's loop; it reads
+  // chunks rho and rho + 1 (K <= kOneRound)
+  unsigned long long best = 0ull;
+  for (int rho = 0; rho < rounds; ++rho) {
+    stage(rho + kOneAhead);
+    cp_async_wait<kOneAhead - 1>();           // chunks 0 .. rho + 1 have landed
+    __syncthreads();
+    const int first = rho * kOneRound + static_cast<int>(threadIdx.x) * L;
+    if (first < n_lags) {
+      const float* pr = s_re + padded_index(first);
+      const float* pi = s_im + padded_index(first);
+      float xr[L], xi[L], cr[L], ci[L];
+#pragma unroll
+      for (int q = 0; q < L; ++q) {
+        xr[q] = pr[q];
+        xi[q] = pi[q];
+        cr[q] = 0.f;
+        ci[q] = 0.f;
+      }
+      int j0 = 0;
+      for (; j0 + L <= k; j0 += L, pr += L + 1, pi += L + 1) {
+        tap_group<kRealTemplate>(pr, pi, s_wr, s_wi, j0, L, xr, xi, cr, ci);
+      }
+      if (j0 < k) tap_group<kRealTemplate>(pr, pi, s_wr, s_wi, j0, k - j0, xr, xi, cr, ci);
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        if (first + i < n_lags) {
+          best = umax64(best, pack_key(fmaf(cr[i], cr[i], ci[i] * ci[i]),
+                                       base + first + i));
+        }
+      }
+    }
+  }
+  for (int ch = rounds + kOneAhead; ch < n_chunks; ++ch) stage(ch);
+  cp_async_wait<0>();
+  // block_max's barrier also makes every staged sample visible to the block
+  best = block_max<kOneThreads>(best, s_warp);
+  if (threadIdx.x == 0) s_key = best;
+  cluster_arrive();
+  cluster_wait();                               // every CTA's key is published
+  if (threadIdx.x == 0) {
+    unsigned long long m = 0ull;
+    for (int q = 0; q < n_cta; ++q) m = umax64(m, *cluster.map_shared_rank(&s_key, q));
+    const unsigned lag = 0xFFFFFFFFu - static_cast<unsigned>(m & 0xFFFFFFFFull);
+    const int raw = static_cast<int>(lag) - 1;
+    if (c == 0) raw_off[r] = raw;
+    s_off = min(max(raw, 0), max_off);
+  }
+  __syncthreads();
+  cluster_arrive();                             // done with the other CTAs' keys
+
+  // outputs i < n_out of this CTA read its local sample off + i
+  const int off = s_off;
+  float* dst = out + r * out_row + static_cast<long long>(base) * out_elem;
+  auto aligned = [](const float* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  int done = 0;
+  if (out_elem == 1 && aligned(dst) && aligned(dst + out_plane)) {
+    // planes: 4 outputs of each plane a float4
+    const int quads = n_out / 4;
+    for (int q = threadIdx.x; q < quads; q += kOneThreads) {
+      const int n = off + 4 * q;
+      reinterpret_cast<float4*>(dst)[q] = make_float4(
+          s_re[padded_index(n)], s_re[padded_index(n + 1)],
+          s_re[padded_index(n + 2)], s_re[padded_index(n + 3)]);
+      reinterpret_cast<float4*>(dst + out_plane)[q] = make_float4(
+          s_im[padded_index(n)], s_im[padded_index(n + 1)],
+          s_im[padded_index(n + 2)], s_im[padded_index(n + 3)]);
+    }
+    done = 4 * quads;
+  } else if (out_elem == 2 && out_plane == 1 && aligned(dst)) {
+    // complex64: 2 outputs a float4
+    const int pairs = n_out / 2;
+    for (int q = threadIdx.x; q < pairs; q += kOneThreads) {
+      const int n = off + 2 * q;
+      reinterpret_cast<float4*>(dst)[q] = make_float4(
+          s_re[padded_index(n)], s_im[padded_index(n)],
+          s_re[padded_index(n + 1)], s_im[padded_index(n + 1)]);
+    }
+    done = 2 * pairs;
+  }
+  for (int i = done + static_cast<int>(threadIdx.x); i < n_out; i += kOneThreads) {
+    dst[i * out_elem] = s_re[padded_index(off + i)];
+    dst[out_plane + i * out_elem] = s_im[padded_index(off + i)];
+  }
+  cluster_wait();                 // no CTA leaves while another reads its key
+}
+
+template <typename Kernel>
+cudaError_t prepare_one_pass(Kernel* fn) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kOneMaxShared);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool kRealTemplate>
+cudaError_t launch_one_pass(const float* src, long long row_stride,
+                            long long plane_stride, long long elem_stride,
+                            int rows, int t, const float2* tpl, int k,
+                            int lag_bound, int need, int max_off, int cluster,
+                            int* raw_off, float* out, long long out_row,
+                            long long out_plane, long long out_elem,
+                            cudaStream_t s) {
+  const int share = one_pass_share(lag_bound, need, cluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * cluster);
+  cfg.blockDim = dim3(kOneThreads);
+  cfg.dynamicSmemBytes = 2 * sizeof(float) * one_pass_plane(share, k, max_off);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, sync_window_kernel<kRealTemplate>, src,
+                            row_stride, plane_stride, elem_stride, t, tpl, k,
+                            lag_bound, need, max_off, share, raw_off, out,
+                            out_row, out_plane, out_elem);
+}
+
 __global__ void __launch_bounds__(kThreads)
 planar_align_kernel(const float* __restrict__ in, long long row_stride,
                     long long plane_stride, long long elem_stride, long long t,
@@ -430,6 +714,57 @@ extern "C" int ofdm_sync_align(const void* in, long long row_stride,
       need, static_cast<int*>(raw_off), static_cast<float*>(out), out_row,
       out_plane, out_elem);
   return cudaGetLastError();
+}
+
+// Dynamic shared memory, in bytes, that one CTA of ofdm_sync_align_one_pass
+// takes for these shapes and cluster size (kernels/align.py mirrors it).
+extern "C" int ofdm_sync_align_one_pass_shared_bytes(int lag_bound, int need,
+                                                     int k, int max_off,
+                                                     int cluster) {
+  return 2 * static_cast<int>(sizeof(float)) *
+         one_pass_plane(one_pass_share(lag_bound, need, cluster), k, max_off);
+}
+
+// Let the one-pass kernel take up to kOneMaxShared bytes of dynamic shared
+// memory, and prefer shared memory over L1, on the current device.  Call
+// once per device before the first launch there, outside any graph capture.
+extern "C" int ofdm_sync_align_one_pass_prepare() {
+  cudaError_t e = prepare_one_pass(sync_window_kernel<true>);
+  return e != cudaSuccess ? e : prepare_one_pass(sync_window_kernel<false>);
+}
+
+// K1 in one kernel: the arguments of ofdm_sync_align, with `cluster` CTAs a
+// row (1 to 8) in place of the partial keys.  Refuses shapes whose CTA
+// would take more than kOneMaxShared bytes of shared memory.
+extern "C" int ofdm_sync_align_one_pass(
+    const void* in, long long row_stride, long long plane_stride,
+    long long elem_stride, int rows, int t, const void* tpl, int k,
+    int real_template, int lag_bound, int need, int max_off, int cluster,
+    void* raw_off, void* out, long long out_row, long long out_plane,
+    long long out_elem, void* stream) {
+  if (rows <= 0 || t <= 0 || k <= 0 || k > kMaxTaps || lag_bound <= 0 ||
+      lag_bound > t || need <= 0 || need > t || max_off < 0 ||
+      max_off > t - need || cluster < 1 || cluster > kOneMaxCluster ||
+      rows > INT_MAX / cluster ||
+      ofdm_sync_align_one_pass_shared_bytes(lag_bound, need, k, max_off,
+                                            cluster) > kOneMaxShared) {
+    return cudaErrorInvalidValue;
+  }
+  const auto* src = static_cast<const float*>(in);
+  const auto* w = static_cast<const float2*>(tpl);
+  auto* raw = static_cast<int*>(raw_off);
+  auto* dst = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (real_template) {
+    return launch_one_pass<true>(src, row_stride, plane_stride, elem_stride,
+                                 rows, t, w, k, lag_bound, need, max_off,
+                                 cluster, raw, dst, out_row, out_plane,
+                                 out_elem, s);
+  }
+  return launch_one_pass<false>(src, row_stride, plane_stride, elem_stride,
+                                rows, t, w, k, lag_bound, need, max_off,
+                                cluster, raw, dst, out_row, out_plane, out_elem,
+                                s);
 }
 
 // K3: row r of `out` gets `need` samples of row r of `in` (of the one

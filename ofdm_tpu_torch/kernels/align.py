@@ -1,7 +1,9 @@
 """Frame alignment kernels of ofdm_tpu/kernels/align_pallas.py, with their
 plain versions:
 
-- ``sync_align`` (kernel 1, ``csrc/sync_align.cu``): fused sync + window copy;
+- ``sync_align`` (kernel 1, ``csrc/sync_align.cu``): fused sync + window copy,
+  in one kernel (``sync_align_one_pass``) for the rows ``one_pass_cluster``
+  takes, in two otherwise;
 - ``planar_align`` (kernel 3, same library): the window copy alone, at
   offsets computed outside (the unfused route), from rows or from one
   shared stream (stream decoding);
@@ -145,6 +147,15 @@ def sync_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
         + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    lib.ofdm_sync_align_one_pass.restype = ctypes.c_int
+    lib.ofdm_sync_align_one_pass.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    lib.ofdm_sync_align_one_pass_shared_bytes.restype = ctypes.c_int
+    lib.ofdm_sync_align_one_pass_shared_bytes.argtypes = [ctypes.c_int] * 5
+    lib.ofdm_sync_align_one_pass_prepare.restype = ctypes.c_int
+    lib.ofdm_sync_align_one_pass_prepare.argtypes = []
     lib.ofdm_planar_align.restype = ctypes.c_int
     lib.ofdm_planar_align.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_longlong] * 3
@@ -167,6 +178,100 @@ def template_on(tpl: np.ndarray, device: torch.device) -> torch.Tensor:
                         torch.complex64, device)
 
 
+# K1 in one pass (``sync_window_kernel``): a thread-block cluster a row, each
+# CTA staging its share of the row and a halo in shared memory.  The sizes
+# mirror csrc/sync_align.cu.
+LAGS_PER_THREAD = 8                  # kLagsPerThread
+ONE_PASS_CLUSTERS = (1, 2, 4, 8)     # kOneMaxCluster = 8, the portable most
+SM_SHARED_BYTES = 233_472            # an H100 SM's shared memory (228 KB)
+# a CTA's static shared memory (1.1 KB) and the 1 KB an SM reserves a CTA
+CTA_SHARED_OVERHEAD = 3_072
+# CTAs of the kernel an SM holds by its registers (64 a thread, 256 threads),
+# and the fewest that let one CTA's copies run under another's multiply-adds
+ONE_PASS_RESIDENT = (4, 2)
+# the CTAs an H100 SXM holds at once (132 SMs, 4 each): a grid of fewer
+# leaves SMs idle while each CTA works through its share, where the two
+# kernels spread a row over a CTA per 1,024 lags
+ONE_PASS_MIN_CTAS = 132 * 4
+
+
+def one_pass_shared_bytes(lag_bound: int, need: int, taps: int, max_off: int,
+                          cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the one-pass kernel: two padded
+    planes of its share P of the lags and outputs (max(lag_bound, need) /
+    cluster, rounded up to 8) and the halo max(taps, max_off), one float of
+    padding every 8."""
+    share = -(-max(lag_bound, need) // cluster)
+    share = -(-share // LAGS_PER_THREAD) * LAGS_PER_THREAD
+    n = share + max(taps, max_off)
+    plane = -(-(n + n // LAGS_PER_THREAD) // 4) * 4
+    return 2 * 4 * plane
+
+
+def _fitting_cluster(t: int, need: int, lag_bound: int,
+                     taps: int) -> int | None:
+    """The smallest cluster size whose CTA leaves an SM's shared memory
+    room for as many CTAs as its registers allow (4), else the smallest that
+    leaves room for 2; None where no size does."""
+    max_off = t - need
+    for resident in ONE_PASS_RESIDENT:
+        for c in ONE_PASS_CLUSTERS:
+            smem = one_pass_shared_bytes(lag_bound, need, taps, max_off, c)
+            if resident * (smem + CTA_SHARED_OVERHEAD) <= SM_SHARED_BYTES:
+                return c
+    return None
+
+
+def one_pass_cluster(rows: int, t: int, need: int, lag_bound: int,
+                     taps: int) -> int | None:
+    """The rule: the cluster size with which ``sync_align`` takes one pass
+    over ``rows`` rows of T samples, or None for the two kernels.  One pass
+    is taken where a cluster size fits (``_fitting_cluster``) and the grid
+    of rows x size CTAs fills the card (``ONE_PASS_MIN_CTAS``).  (Measured
+    on the H100, PERF.md: at 2,048 rows of 19,120 samples 4 CTAs a row take
+    0.40 ms, 2 take 0.43, 8 take 0.50 and the two kernels 0.58; at 64 rows
+    one pass takes 0.022 ms against 0.021.)"""
+    c = _fitting_cluster(t, need, lag_bound, taps)
+    return c if c is not None and rows * c >= ONE_PASS_MIN_CTAS else None
+
+
+@lru_cache(maxsize=None)
+def _one_pass_ready(index: int) -> None:
+    """Lets the one-pass kernel take its shared memory on CUDA device
+    ``index``: once, at its first launch there, which is eager (graphs
+    capture a key's second call)."""
+    lib = sync_lib()
+    with torch.cuda.device(index):
+        _build.check(lib, lib.ofdm_sync_align_one_pass_prepare(),
+                     "sync_align_one_pass")
+
+
+def _out(r: int, need: int, planar: bool, dev) -> torch.Tensor:
+    return torch.empty((r, 2, need), dtype=torch.float32, device=dev) if planar \
+        else torch.empty((r, need), dtype=torch.complex64, device=dev)
+
+
+def _two_pass(flat: torch.Tensor, tpl: np.ndarray, need: int, lag_bound: int,
+              planar: bool):
+    """K1 as two kernels (correlation pass, then window pass) on a CUDA
+    tensor: (window, raw offsets)."""
+    r, t = check_input(flat, "sync_align")
+    lib = sync_lib()
+    dev = flat.device
+    w = template_on(tpl, dev)
+    partial = torch.empty((r, lib.ofdm_sync_align_n_partial(lag_bound)),
+                          dtype=torch.int64, device=dev)
+    raw = torch.empty(r, dtype=torch.int32, device=dev)
+    out = _out(r, need, planar, dev)
+    err = lib.ofdm_sync_align(
+        flat.data_ptr(), *window_strides(flat), r, t, w.data_ptr(), len(tpl),
+        int(_template_is_real(tpl)), lag_bound, need, t - need,
+        partial.data_ptr(), raw.data_ptr(), out.data_ptr(),
+        *window_strides(out), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sync_align")
+    return out, raw
+
+
 def sync_align(flat: torch.Tensor, template, need: int,
                search_window: int | None = None, planar: bool = False):
     """Fused sync + align: returns (window, raw_offsets).
@@ -178,32 +283,69 @@ def sync_align(flat: torch.Tensor, template, need: int,
     raw_offsets: int32 [R], the unclipped argmax - 1.
 
     A CPU tensor runs ``sync_align_reference``; a CUDA tensor launches the
-    kernel (counted in ``sync_align.launches``); any other device raises.
+    kernel (counted in ``sync_align.launches``): one kernel
+    (``sync_align_one_pass``) where ``one_pass_cluster`` takes the shape,
+    the correlation and window passes otherwise, with the same offsets and
+    windows.  Any other device raises.
     """
     r, t, tpl, lag_bound = _check(flat, template, need, search_window)
     if flat.device.type == "cpu":
         return sync_align_reference(flat, tpl, need, search_window, planar)
     if flat.device.type != "cuda":
         raise ValueError(f"sync_align runs on cpu or cuda, not {flat.device}")
-    lib = sync_lib()
-    dev = flat.device
-    w = template_on(tpl, dev)
-    partial = torch.empty((r, lib.ofdm_sync_align_n_partial(lag_bound)),
-                          dtype=torch.int64, device=dev)
-    raw = torch.empty(r, dtype=torch.int32, device=dev)
-    out = torch.empty((r, 2, need), dtype=torch.float32, device=dev) if planar \
-        else torch.empty((r, need), dtype=torch.complex64, device=dev)
-    err = lib.ofdm_sync_align(
-        flat.data_ptr(), *window_strides(flat), r, t, w.data_ptr(), len(tpl),
-        int(_template_is_real(tpl)), lag_bound, need, t - need,
-        partial.data_ptr(), raw.data_ptr(), out.data_ptr(),
-        *window_strides(out), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "sync_align")
+    if one_pass_cluster(r, t, need, lag_bound, len(tpl)) is None:
+        out, raw = _two_pass(flat, tpl, need, lag_bound, planar)
+    else:
+        out, raw = sync_align_one_pass(flat, tpl, need, search_window, planar)
     sync_align.launches += 1
     return out, raw
 
 
 sync_align.launches = 0
+
+
+def sync_align_one_pass(flat: torch.Tensor, template, need: int,
+                        search_window: int | None = None,
+                        planar: bool = False):
+    """``sync_align`` in one kernel: each row read once by a thread-block
+    cluster, its offset agreed across the cluster and its window written
+    from shared memory.  The same arguments, results and offsets as
+    ``sync_align``, which calls it where ``one_pass_cluster`` says.  It
+    runs any number of rows whose shape fits a cluster's shared memory, and
+    raises ValueError for a shape that does not.
+
+    A CPU tensor runs ``sync_align_reference``; a CUDA tensor launches the
+    kernel (counted in ``sync_align_one_pass.launches``; ``sync_align``
+    counts its own calls); any other device raises.
+    """
+    r, t, tpl, lag_bound = _check(flat, template, need, search_window)
+    if flat.device.type == "cpu":
+        return sync_align_reference(flat, tpl, need, search_window, planar)
+    if flat.device.type != "cuda":
+        raise ValueError(f"sync_align_one_pass runs on cpu or cuda, not "
+                         f"{flat.device}")
+    cluster = _fitting_cluster(t, need, lag_bound, len(tpl))
+    if cluster is None:
+        raise ValueError(f"rows of T={t} (need={need}, lag_bound={lag_bound}, "
+                         f"{len(tpl)} taps) do not fit one pass; sync_align "
+                         "takes two kernels there")
+    lib = sync_lib()
+    dev = flat.device
+    _one_pass_ready(dev.index)
+    w = template_on(tpl, dev)
+    raw = torch.empty(r, dtype=torch.int32, device=dev)
+    out = _out(r, need, planar, dev)
+    err = lib.ofdm_sync_align_one_pass(
+        flat.data_ptr(), *window_strides(flat), r, t, w.data_ptr(), len(tpl),
+        int(_template_is_real(tpl)), lag_bound, need, t - need, cluster,
+        raw.data_ptr(), out.data_ptr(), *window_strides(out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sync_align_one_pass")
+    sync_align_one_pass.launches += 1
+    return out, raw
+
+
+sync_align_one_pass.launches = 0
 
 
 KEY_LAG_MASK = 0xFFFFFFFF

@@ -18,7 +18,7 @@ import torch
 
 import ofdm_tpu_torch as ott
 from ofdm_tpu_torch.kernels import counters
-from ofdm_tpu_torch.kernels.align import sync_align
+from ofdm_tpu_torch.kernels.align import sync_align, sync_align_one_pass
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack
 from ofdm_tpu_torch.kernels.derot import derot_dft
 from ofdm_tpu_torch.obs import profiler
@@ -279,6 +279,25 @@ def test_a_replay_counts_the_launches_an_eager_call_makes():
     _, (x,), kw = _batches(dev, n=1)
     n = [_delta(lambda: rx.decode_frame(x, **kw))[1] for _ in range(4)]
     assert counts()[0] >= 1 and n == [(1, 1, 1)] * 4
+
+
+@pytest.mark.gpu
+def test_a_replay_takes_k1_in_one_pass_as_the_eager_call_does():
+    """At 256 rows of the benchmark's 19,120 samples K1 runs as one kernel
+    (``sync_align_one_pass``): the capture holds it, every replay counts
+    it, and the replayed bytes equal the eager call's."""
+    dev = _cuda()
+    _, (x,), kw = _batches(dev, n=1, rows=256)
+    before = counts()
+    outs, one_pass = [], []
+    for _ in range(4):            # eager, capture, replay, replay
+        n = sync_align_one_pass.launches
+        outs.append(rx.decode_frame(x, **kw))
+        torch.cuda.synchronize()
+        one_pass.append(sync_align_one_pass.launches - n)
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert one_pass == [1] * 4
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 @pytest.mark.gpu

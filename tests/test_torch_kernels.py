@@ -26,11 +26,14 @@ import torch
 import ofdm_tpu_torch as ott
 from ofdm_tpu_torch import DEFAULT_CONFIG, Modulation, constants
 from ofdm_tpu_torch.io.iqfile import read_iq
-from ofdm_tpu_torch.kernels.align import (key_lag, key_power, pack_keys,
+from ofdm_tpu_torch.kernels import align
+from ofdm_tpu_torch.kernels.align import (key_lag, key_power, one_pass_cluster,
+                                          one_pass_shared_bytes, pack_keys,
                                           pin_rowmajor, pin_rowmajor_reference,
                                           planar_align, planar_align_reference,
-                                          sync_align, sync_align_reference,
-                                          sync_keys, sync_keys_reference)
+                                          sync_align, sync_align_one_pass,
+                                          sync_align_reference, sync_keys,
+                                          sync_keys_reference)
 from ofdm_tpu_torch.kernels.chain import (sync_align_chunked,
                                           sync_align_chunked_reference)
 from ofdm_tpu_torch.kernels.demod import eq_demod_pack, eq_demod_pack_reference
@@ -404,15 +407,78 @@ def _keys_case(name):
     return s, tpl, s.shape[-1] if win is None else win + len(tpl), first
 
 
+# K1's one pass: which shapes take it (kernels/align.py::one_pass_cluster)
+
+def _fits(resident, t, need, lag_bound, taps, cluster):
+    """The staging arithmetic: ``resident`` CTAs of ``cluster`` a row fit an
+    H100 SM's 228 KB of shared memory, 3 KB of each CTA's static."""
+    smem = one_pass_shared_bytes(lag_bound, need, taps, t - need, cluster)
+    return resident * (smem + 3072) <= 233_472
+
+
+@pytest.mark.parametrize("shape, cluster", [
+    ((2048, 19120, 19040, 19120, 80), 4),      # the batch cell: 4 of 42 KB
+    ((256, 19120, 19040, 19120, 80), 4),       # the bench's headline
+    ((132, 19120, 19040, 19120, 80), 4),       # 528 CTAs: the card once
+    ((131, 19120, 19040, 19120, 80), None),    # fewer: the two kernels
+    ((1, 19120, 19040, 19120, 80), None),      # one row: the two kernels
+    ((780, 2560, 2560, 160, 80), 1),           # serving: search window 80
+    ((256, 19040, 19040, 160, 80), 4),         # the stream resync
+    ((2, 1_000_003, 19040, 1_000_003, 80), None),   # chip_smoke's long row
+    ((2048, 110_320, 110_240, 110_320, 80), None),  # a BPSK frame's row
+    ((2048, 9600, 9520, 9600, 80), 2),
+    ((2048, 24_256, 24_176, 24_256, 80), 4),   # the last T with 4 at 4 a row
+    ((2048, 24_257, 24_177, 24_257, 80), 8),   # then 8 a row hold 4 an SM
+    ((2048, 100_352, 100_272, 100_352, 80), 8),   # the last T that fits 2
+    ((2048, 100_353, 100_273, 100_353, 80), None),
+    ((2048, 19120, 18000, 19120, 128), 4),     # a halo of max_off = 1,120
+], ids=["cell", "headline", "132 rows", "131 rows", "one row", "serving",
+        "resync", "long row", "bpsk", "T 9,600", "T 24,256", "T 24,257",
+        "T 100,352", "T 100,353", "halo 1,120"])
+def test_one_pass_rule(shape, cluster):
+    assert one_pass_cluster(*shape) == cluster
+
+
+@pytest.mark.parametrize("t", [24_256, 24_257, 100_352, 100_353])
+def test_one_pass_rule_lands_where_the_staging_arithmetic_says(t):
+    """At each boundary of the rule, a CTA's shared memory at the chosen
+    cluster size fits its resident CTAs and at no smaller size does (nor,
+    past the last, at any size)."""
+    shape = (t, t - 80, t, 80)
+    got = one_pass_cluster(2048, *shape)
+    if got is None:
+        assert not any(_fits(2, *shape, c) for c in (1, 2, 4, 8))
+        return
+    resident = 4 if any(_fits(4, *shape, c) for c in (1, 2, 4, 8)) else 2
+    assert _fits(resident, *shape, got)
+    assert not any(_fits(resident, *shape, c) for c in (1, 2, 4, 8) if c < got)
+
+
+def test_one_pass_shared_bytes_of_the_cell():
+    """P = 19,120 / 4 = 4,780 -> 4,784, halo 80: 4,864 samples a plane,
+    5,472 floats padded, two planes."""
+    assert one_pass_shared_bytes(19120, 19040, 80, 80, 4) == 2 * 4 * 5472
+    assert one_pass_shared_bytes(19120, 19040, 80, 80, 2) == 86_784
+
+
+def test_sync_align_one_pass_on_cpu_runs_the_plain_version():
+    x = torch.as_tensor(_stream(TPL))
+    before = (sync_align.launches, sync_align_one_pass.launches)
+    got, raw = sync_align_one_pass(x, TPL, NEED, planar=True)
+    ref, raw_ref = sync_align_reference(x, TPL, NEED, planar=True)
+    assert torch.equal(got, ref) and torch.equal(raw, raw_ref)
+    assert (sync_align.launches, sync_align_one_pass.launches) == before
+
+
 KEY_CASES = ["real", "complex", *K1_EDGES]
 
 
 def test_counters_name_every_hand_kernel():
-    """``kernels.counters()`` is the one list of launch counters: the seven
+    """``kernels.counters()`` is the one list of launch counters: the eight
     wrappers of the package's public kernel modules, each by its name."""
     found = counters()
-    assert set(found) == {"sync_align", "planar_align", "sync_keys",
-                          "pin_rowmajor", "sync_align_chunked",
+    assert set(found) == {"sync_align", "sync_align_one_pass", "planar_align",
+                          "sync_keys", "pin_rowmajor", "sync_align_chunked",
                           "eq_demod_pack", "derot_dft"}
     assert all(fn.__name__ == name and type(fn.launches) is int
                for name, fn in found.items())
@@ -727,6 +793,121 @@ def test_sync_align_kernel_edges_match_plain(name):
                                                 planar=planar)
             assert torch.equal(raw, raw_ref) and torch.equal(got, ref)
             assert raw.tolist() == [f - 1 for f in first]
+
+
+# K1's one pass against the two kernels and the plain version.  Its CTAs
+# own 4,784 lags each at T = 19,120 (4 a row), so lags 4,784, 9,568 and
+# 14,352 open the second to fourth CTA's share.
+ONE_PASS_CASES = ["cell", "CTA edges", "ties at CTA edges", "offset max_off",
+                  "halo 1,120", "T odd", "one row", "complex template",
+                  "search_window", "too long"]
+
+
+def _one_pass_case(name):
+    """(stream [R, T], template, need, search_window, first peak lag per
+    row)."""
+    rng = np.random.default_rng(31)
+    t, need, win, tpl, rows = 19120, 19040, None, TPL, 256
+    if name == "ties at CTA edges":
+        # integer rows, so every power is exact: copies of one template at
+        # two lags 80 or more apart tie, the lower lag on one side of a
+        # CTA edge and the higher on the other (or both in one CTA's halo)
+        tpl = rng.choice([-2.0, -1.0, 1.0, 2.0], 80).astype(np.complex64)
+        pairs = [(4704, 4784), (4744, 4824), (4784, 9568), (9500, 14352),
+                 (0, 19040), ()]
+        s = np.zeros((144, t), np.complex64)
+        for row in range(144):
+            for lag in pairs[row % len(pairs)]:
+                s[row, lag:lag + 80] += tpl
+        first = [(pairs[row % len(pairs)] or (0,))[0] for row in range(144)]
+        return s, tpl, need, win, first       # an all-zero row: lag 0
+    if name == "CTA edges":
+        base = [4783, 4784, 4785, 9567, 9568, 14351, 14352, 19039, 19040,
+                0, 1, 7, 8, 81, 4700]
+        delays = [base[i % len(base)] for i in range(rows)]
+    elif name == "offset max_off":          # every offset clipped to 80
+        delays = rng.integers(81, 4000, rows).tolist()
+    elif name == "halo 1,120":              # max_off 1,120: the halo
+        need = 18000
+        delays = rng.integers(0, 1122, rows).tolist()
+    elif name == "T odd":                   # T not a multiple of 4
+        t, need = 19121, 19041
+        delays = rng.integers(0, 200, rows).tolist()
+    elif name == "one row":
+        rows, delays = 1, [4785]
+    elif name == "complex template":
+        rows, tpl = 144, TPL_C
+        delays = rng.integers(0, 19040, rows).tolist()
+    elif name == "search_window":           # serving's shape: 1 CTA a row
+        rows, t, need, win = 780, 2560, 2560, 80
+        delays = rng.integers(0, 160, rows).tolist()
+    elif name == "too long":                # a BPSK frame's row
+        rows, t, need = 2, 110_320, 110_240
+        delays = [54_321, 110_240]
+    else:
+        delays = rng.integers(0, 200, rows).tolist()
+    s = 0.01 * (rng.standard_normal((rows, t))
+                + 1j * rng.standard_normal((rows, t)))
+    for i, d in enumerate(delays):
+        s[i, d:d + len(tpl)] += tpl
+    return s.astype(np.complex64), tpl, need, win, delays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ONE_PASS_CASES)
+def test_sync_align_one_pass_matches_two_kernels_and_plain(name):
+    """Covered on the card by chip_smoke.py phase 2.  ``sync_align`` takes
+    one pass where ``one_pass_cluster`` says, and ``sync_align_one_pass``
+    runs every shape that fits; offsets and windows are bitwise those of
+    the two kernels and of the plain version, on complex and planar input
+    and output."""
+    dev = _cuda()
+    s, tpl, need, win, first = _one_pass_case(name)
+    rows, t = s.shape
+    lag_bound = t if win is None else min(t, win + len(tpl))
+    takes = one_pass_cluster(rows, t, need, lag_bound, len(tpl)) is not None
+    fits = name != "too long"
+    assert takes == (fits and name != "one row")
+    for planar_in in (False, True):
+        x = _as_input(s, planar_in).to(dev)
+        for planar in (False, True):
+            ref, raw_ref = sync_align_reference(x, tpl, need, search_window=win,
+                                                planar=planar)
+            two, raw_two = align._two_pass(x, tpl, need, lag_bound, planar)
+            before = sync_align_one_pass.launches
+            got, raw = sync_align(x, tpl, need, search_window=win,
+                                  planar=planar)
+            assert sync_align_one_pass.launches - before == int(takes)
+            if fits:
+                one, raw_one = sync_align_one_pass(x, tpl, need,
+                                                   search_window=win,
+                                                   planar=planar)
+            else:
+                with pytest.raises(ValueError, match="do not fit one pass"):
+                    sync_align_one_pass(x, tpl, need, search_window=win,
+                                        planar=planar)
+                one, raw_one = got, raw
+            assert sync_align_one_pass.launches - before == takes + fits
+            for w, r in ((two, raw_two), (got, raw), (one, raw_one)):
+                assert torch.equal(r, raw_ref) and torch.equal(w, ref)
+            assert raw.tolist() == [f - 1 for f in first]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(19120, 19040, 19120, 80, 80),
+                                   (19120, 18000, 19120, 128, 1120),
+                                   (2560, 2560, 160, 80, 0),
+                                   (110_320, 110_240, 110_320, 80, 80)])
+def test_one_pass_shared_bytes_agree_with_the_kernel(shape):
+    """kernels/align.py's staging arithmetic is the kernel's, byte for byte,
+    at every cluster size."""
+    _cuda()
+    t, need, lag_bound, taps, max_off = shape
+    lib = align.sync_lib()
+    for c in (1, 2, 4, 8):
+        assert lib.ofdm_sync_align_one_pass_shared_bytes(
+            lag_bound, need, taps, max_off, c) == one_pass_shared_bytes(
+                lag_bound, need, taps, max_off, c)
 
 
 @pytest.mark.gpu
